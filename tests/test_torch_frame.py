@@ -1,0 +1,156 @@
+"""The slice end to end: tpuray_torch's integrator and Renderer vs tpuray's
+on the CPU, under the slice config (SVGF off, no compaction).
+
+- trace_paths on 1,024 rays: the tolerances of
+  tests/test_pallas_kernel.py:test_fused_secondary_matches_separate_integrator
+  (color rtol 2e-4 / atol 2e-5, first-hit validity exact, albedo rtol 1e-5),
+  on all but 1% of the rays. XLA on the CPU contracts multiply-adds into
+  FMAs (the triangle constants, n.d, o + d*t), the port does not (nor do
+  its CUDA kernels), so hit distances differ by an ulp; a glossy lobe's pdf
+  and a grazing shadow test can turn that into a visible change on a few
+  rays in a thousand.
+- two moving-camera Renderer frames at 48x48: pt_color and final with the
+  image tolerance of tests/test_dist_frame.py (all but 0.5% of pixels within
+  5e-4, none beyond 0.1: a one-ulp shift can flip a grazing shadow test),
+  first-hit validity and coverage exact, G-buffer linear_z within rtol 1e-5.
+- a fresh interpreter with jax blocked imports tpuray_torch and renders.
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+import tpuray
+from tpuray.integrator import path_tracer as jpt
+from tpuray.scene.camera import OrbitCamera as JOrbitCamera
+from tpuray.scene.config import RenderConfig as JRenderConfig
+from tpuray.scene.procedural import make_test_scene
+
+import tpuray_torch
+from tpuray_torch.integrator import path_tracer
+from tpuray_torch.scene.camera import OrbitCamera
+from tpuray_torch.scene.config import RenderConfig
+from tpuray_torch.scene.types import scene_from_numpy, scene_to_numpy
+
+torch.set_num_threads(2)
+
+SLICE = dict(enable_svgf=False, compact_frac=0.0, compact_auto=False)
+H = W = 48
+
+
+def assert_images_close(a, b, tol=5e-4, outlier_frac=0.005,
+                        outlier_max=0.1, msg=""):
+    d = np.abs(np.asarray(a) - np.asarray(b)).max(-1)
+    frac = float((d > tol).mean())
+    assert frac <= outlier_frac, f"{msg}: {frac:.4%} pixels differ > {tol}"
+    assert d.max() < outlier_max, f"{msg}: max diff {d.max():.4f}"
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    js = make_test_scene(subdiv=2, env_width=32)
+    return js, scene_from_numpy(scene_to_numpy(js))
+
+
+@pytest.mark.parametrize("extra", [
+    {}, {"tile_coherent_sampling": True}, {"enable_aniso": True}],
+    ids=["default", "tile_coherent", "aniso"])
+def test_trace_paths_matches(scenes, extra):
+    js, ts = scenes
+    n = 1024
+    rng = np.random.default_rng(21)
+    o = np.tile(np.asarray([[0.0, 0.3, 2.0]], np.float32), (n, 1))
+    o += (rng.random((n, 3)).astype(np.float32) - 0.5) * 0.4
+    tgt = (rng.random((n, 3)).astype(np.float32) - 0.5) * 1.5
+    d = tgt - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    px = np.arange(n, dtype=np.uint32)
+    py = np.arange(n, dtype=np.uint32) * np.uint32(3)
+    cfg = dict(max_tracing_depth=2, compact_frac=0.0, compact_auto=False, **extra)
+
+    ref = jpt.trace_paths(js, jnp.asarray(o), jnp.asarray(d), jnp.asarray(px),
+                          jnp.asarray(py), jnp.uint32(5), JRenderConfig(**cfg))
+    out = path_tracer.trace_paths(
+        ts, torch.from_numpy(o), torch.from_numpy(d),
+        torch.from_numpy(px.astype(np.int64)),
+        torch.from_numpy(py.astype(np.int64)), 5, RenderConfig(**cfg))
+    off = ~np.isclose(out.color.numpy(), np.asarray(ref.color),
+                      rtol=2e-4, atol=2e-5).all(-1)
+    assert off.mean() <= 0.01, f"{off.sum()} of {n} rays beyond rtol 2e-4"
+    np.testing.assert_array_equal(out.first_hit_valid.numpy(),
+                                  np.asarray(ref.first_hit_valid))
+    np.testing.assert_allclose(out.albedo.numpy(), np.asarray(ref.albedo),
+                               rtol=1e-5, atol=1e-7)
+    assert np.asarray(ref.first_hit_valid).mean() > 0.3
+    assert np.asarray(ref.color).max() > 0.05
+
+
+def test_renderer_moving_frames_match(scenes):
+    js, ts = scenes
+    jr = tpuray.Renderer(js, JRenderConfig(width=W, height=H, **SLICE))
+    tr = tpuray_torch.Renderer(ts, RenderConfig(width=W, height=H, **SLICE))
+    jcam, tcam = JOrbitCamera(width=W, height=H), OrbitCamera(width=W, height=H)
+    for frame in range(2):
+        jo = jr.step(jcam.snapshot())
+        to = tr.step(tcam.snapshot())
+        msg = f"frame {frame}"
+        assert_images_close(to.pt_color.numpy(), jo.pt_color, msg=msg)
+        assert_images_close(to.final.numpy(), jo.final, msg=msg)
+        assert torch.equal(to.final, to.pt_color)
+        jz = np.asarray(jo.gbuffer.linear_z)
+        tz = to.gbuffer.linear_z.numpy()
+        np.testing.assert_array_equal(tz != 1.0, jz != 1.0, err_msg=msg)
+        np.testing.assert_allclose(tz, jz, rtol=1e-5, err_msg=msg)
+        assert float(to.coverage) == float(jo.coverage)
+        assert 0.2 < float(to.coverage) < 1.0
+        jcam.rotate(0.5, 0.0)
+        tcam.rotate(0.5, 0.0)
+    assert tr.state.frame_idx == 2
+    img = tr.display_image()
+    np.testing.assert_allclose(img, jr.display_image(), atol=2e-3)
+
+
+@pytest.mark.parametrize("field,value,item", [
+    ("enable_svgf", True, "item 8"),
+    ("compact_frac", 0.5, "item 10"),
+    ("compact_auto", True, "item 10"),
+    ("integrator", "mis", "item 11"),
+    ("fused_secondary", False, "item 11"),
+    ("use_normal_map", True, "item 9"),
+])
+def test_unported_config_raises(scenes, field, value, item):
+    _, ts = scenes
+    cfg = RenderConfig(width=16, height=16, **dict(SLICE, **{field: value}))
+    with pytest.raises(NotImplementedError, match=item):
+        tpuray_torch.Renderer(ts, cfg)
+
+
+def test_renders_without_jax():
+    """The card's machine has no jax: the package must not need it."""
+    code = """
+import sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+sys.modules["tpuray"] = None
+import torch
+torch.set_num_threads(2)
+from tpuray_torch import Renderer, RenderConfig
+from tpuray_torch.scene.camera import OrbitCamera
+from tpuray_torch.scene.procedural import make_test_scene
+cfg = RenderConfig(width=16, height=16, enable_svgf=False, compact_frac=0.0,
+                   compact_auto=False)
+r = Renderer(make_test_scene(subdiv=1, env_width=32), cfg)
+out = r.step(OrbitCamera(width=16, height=16).snapshot())
+assert torch.isfinite(out.final).all() and out.final.shape == (16, 16, 3)
+assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v}
+print("ok", float(out.coverage))
+"""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")

@@ -1,0 +1,22 @@
+"""tpuray_torch — the PyTorch + CUDA port of tpuray for one NVIDIA H100.
+
+The package mirrors tpuray/'s layout and names module for module. It
+imports torch and numpy only, never jax or tpuray: the JAX package stays
+as the reference, and tests/test_torch_*.py hold each module against it on
+the CPU. The BVH traversal kernels (K1 trace_packets, K2 trace_multi) are
+hand-written CUDA in csrc/trace.cu, built with nvcc at first use; on CPU
+tensors their wrappers run the plain PyTorch versions.
+
+This slice renders a moving-camera frame with SVGF off; see ROADMAP.md for
+what raises NotImplementedError until later slices.
+"""
+
+__version__ = "0.1.0"
+
+from tpuray_torch.scene.types import (  # noqa: F401
+    BVHSoA, Camera, EnvMap, MaterialTable, PointLights, Scene, TriangleSoA,
+    scene_from_numpy, scene_to_numpy,
+)
+from tpuray_torch.scene.config import DebugView, RenderConfig  # noqa: F401
+from tpuray_torch.render.frame_state import FrameState  # noqa: F401
+from tpuray_torch.render.renderer import Renderer, render_frame  # noqa: F401

@@ -1,0 +1,1 @@
+"""integrator layer of tpuray_torch (see the package docstring)."""

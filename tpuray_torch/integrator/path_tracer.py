@@ -1,0 +1,337 @@
+"""The path-tracing integrator: 1spp progressive tracing with NEE.
+
+Counterpart of tpuray/integrator/path_tracer.py (the "nee" integrator on
+its fused path): per bounce, resolve the hit from (t, triangle index),
+sample the Disney BSDF (Sobol + Cranley-Patterson + Wang-hash stream, in
+the JAX package's draw order), draw the env-map and point-light NEE
+samples, and trace the bounce ray and both shadow rays in one K2 walk
+(kernels/trace.py:trace_multi). The primaries go through K1
+(trace_packets). Runs under torch.no_grad (differentiation is ROADMAP.md
+item 13).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from tpuray_torch.integrator import disney
+from tpuray_torch.integrator.disney import ShadeMaterial, safe_normalize
+from tpuray_torch.integrator.gather_tables import (
+    PackedScene, fetch_material, fetch_tri, pack_scene_tables)
+from tpuray_torch.integrator.intersect import INF, barycentrics, cross
+from tpuray_torch.kernels import trace as ktrace
+from tpuray_torch.sampling import envmap as env
+from tpuray_torch.sampling import rng
+from tpuray_torch.scene.config import RenderConfig
+
+Tensor = torch.Tensor
+PI = np.float32(np.pi)
+EPS = float(np.float32(1e-6))
+
+
+def check_config(cfg: RenderConfig) -> None:
+    """Raise for the integrator options this port does not have yet."""
+    if cfg.integrator != "nee":
+        raise NotImplementedError(
+            f"integrator={cfg.integrator!r}: the MIS integrator and K3 are "
+            "ROADMAP.md item 11")
+    if cfg.compact_frac > 0.0 or cfg.compact_auto:
+        raise NotImplementedError(
+            "bounce compaction (compact_frac > 0 or compact_auto=True) is "
+            "ROADMAP.md item 10; set compact_frac=0.0, compact_auto=False")
+    if not cfg.fused_secondary:
+        raise NotImplementedError(
+            "fused_secondary=False (separate walks through K3) is ROADMAP.md "
+            "item 11")
+    if cfg.use_normal_map:
+        raise NotImplementedError(
+            "use_normal_map (textures) is ROADMAP.md item 9")
+
+
+def resolve_aniso(scene, cfg: RenderConfig) -> bool:
+    """RenderConfig.enable_aniso with "auto" resolved on the materials."""
+    if cfg.enable_aniso != "auto":
+        return bool(cfg.enable_aniso)
+    return bool((scene.materials.anisotropic > 0.0).any())
+
+
+class Hit(NamedTuple):
+    """What shading reads of a hit. (The JAX Hit's uv feeds only textures,
+    ROADMAP.md item 9; its geometric normal has no reader.)"""
+
+    valid: Tensor   # (N,) bool
+    point: Tensor   # (N, 3)
+    normal: Tensor  # (N, 3) shading normal, flipped toward the ray origin
+    mat: ShadeMaterial
+
+
+def resolve_hit(pk: PackedScene, orig: Tensor, d: Tensor, t: Tensor,
+                idx: Tensor, cfg: RenderConfig) -> Hit:
+    """Hit point, shading normal and material from (t, triangle index)."""
+    valid = idx >= 0
+    i = torch.clamp_min(idx, 0)
+    t = torch.where(valid, t, 1.0)
+
+    tri = fetch_tri(pk.tri_table, i)
+    p0, p1, p2 = tri.p0, tri.p1, tri.p2
+    point = orig + d * t[..., None]
+
+    ng = safe_normalize(cross(p1 - p0, p2 - p0), eps=1e-30)
+    inside = torch.sum(ng * d, dim=-1) > 0.0
+
+    a, b, c = barycentrics(point, p0, p1, p2, cfg.reference_quirks)
+    ns = a[..., None] * tri.n0 + b[..., None] * tri.n1 + c[..., None] * tri.n2
+    ns = safe_normalize(ns, eps=1e-30)
+    ns = torch.where(inside[..., None], -ns, ns)
+
+    mat = fetch_material(pk.mat_table, tri.mat_id)
+    # texture sentinels without a texture stack: clamp so shading stays sane
+    mat = mat._replace(base_color=torch.abs(mat.base_color),
+                       metallic=torch.abs(mat.metallic),
+                       roughness=torch.abs(mat.roughness))
+    return Hit(valid=valid, point=point, normal=ns, mat=mat)
+
+
+def _env_nee_sample(pk: PackedScene, r1: Tensor, r2: Tensor
+                    ) -> tuple[Tensor, Tensor, Tensor]:
+    """Env-map light sample: (direction, radiance, pdf) from the NEE table."""
+    return env.sample_env_nee(pk.env_nee_t, r1, r2)
+
+
+def _env_nee_contrib(hit: Hit, v: Tensor, l: Tensor, radiance: Tensor,
+                     p: Tensor, blocked: Tensor, pre: disney.ViewPre
+                     ) -> tuple[Tensor, Tensor]:
+    """Env NEE contribution given the shadow-ray outcome -> (contrib, pdf)."""
+    f_r = disney.evaluate_pre(pre, v, hit.normal, l, hit.mat)
+    p = torch.where(blocked, 0.0, p)
+    p_safe = torch.where(blocked, 1.0, torch.clamp_min(p, 1e-12))
+    contrib = (f_r * torch.abs(torch.sum(l * hit.normal, dim=-1))[..., None]
+               * radiance / p_safe[..., None])
+    contrib = torch.where(blocked[..., None], 0.0, contrib)
+    return contrib, p
+
+
+def _point_nee_sample(pk: PackedScene, hit: Hit, u: Tensor
+                      ) -> tuple[Tensor, Tensor, Tensor]:
+    """Point-light pick + direction -> (direction, distance, radiance)."""
+    n_lights = pk.light_table.shape[0]
+    li = torch.clamp_max((u * n_lights).to(torch.int64), n_lights - 1)
+    lrow = pk.light_table[li]
+    lpos = lrow[..., 0:3]
+    lrad = lrow[..., 3:6]
+    delta = lpos - hit.point
+    dist = torch.sqrt(torch.clamp_min(torch.sum(delta * delta, dim=-1), 1e-24))
+    return delta / dist[..., None], dist, lrad
+
+
+def _point_nee_contrib(n_lights: int, hit: Hit, v: Tensor, ldir: Tensor,
+                       dist: Tensor, lrad: Tensor, shadowed: Tensor,
+                       pre: disney.ViewPre) -> tuple[Tensor, Tensor]:
+    """Point NEE contribution: pdf = 2 pi / n_lights, quadratic falloff."""
+    pdf = torch.full(dist.shape, float(np.float32(2.0) * PI / np.float32(n_lights)),
+                     dtype=torch.float32, device=dist.device)
+    falloff = lrad / torch.clamp_min(dist * dist, 1e-12)[..., None]
+    f_r = disney.evaluate_pre(pre, v, hit.normal, ldir, hit.mat)
+    contrib = (falloff * f_r
+               * torch.abs(torch.sum(ldir * hit.normal, dim=-1))[..., None]
+               / pdf[..., None])
+    contrib = torch.where(shadowed[..., None], 0.0, contrib)
+    return contrib, pdf
+
+
+class PTOutput(NamedTuple):
+    color: Tensor            # (N, 3) per-ray radiance (1 spp)
+    emission: Tensor         # (N, 3) first-hit emissive
+    albedo: Tensor           # (N, 3) first-hit base color
+    first_hit_t: Tensor      # (N,) primary traversal t (INF = sky)
+    first_hit_valid: Tensor  # (N,) bool
+    first_hit_point: Tensor  # (N, 3)
+    first_hit_normal: Tensor  # (N, 3)
+
+
+class _ShadeOut(NamedTuple):
+    light: Tensor
+    miss_any: Tensor
+    miss_dir: Tensor
+    miss_reduction: Tensor
+    emission0: Tensor
+    albedo0: Tensor
+    valid0: Tensor
+    point0: Tensor
+    normal0: Tensor
+
+
+def _shade_loop(pk: PackedScene, tables: ktrace.TraceTables,
+                tracer: ktrace.Tracer, cfg: RenderConfig, orig: Tensor,
+                d: Tensor, px: Tensor, py: Tensor, frame: int,
+                first_t: Tensor, first_idx: Tensor, coherent: bool,
+                aniso: bool) -> _ShadeOut:
+    """The per-bounce NEE + BSDF loop, with the bounce-0 traversal given.
+    Every sample stream is keyed on (px, py, frame), never on lane position."""
+    n = d.shape[0]
+    dev = d.device
+    seed = rng.pixel_seed(px, py, frame)
+    # the reference draws (and discards) an AA jitter first
+    _, seed = rng.rand(seed)
+    _, seed = rng.rand(seed)
+
+    if coherent:
+        # one secondary-ray stream per 32x32 screen tile (see RenderConfig)
+        tpx = px.to(torch.int64) // 32 + 0x8000
+        tpy = py.to(torch.int64) // 32 + 0x8000
+        tseed = rng.pixel_seed(tpx, tpy, frame)
+        cpr_u, cpr_v = rng.cranley_patterson_offsets(tpx, tpy)
+    else:
+        cpr_u, cpr_v = rng.cranley_patterson_offsets(px, py)
+
+    def z3():
+        return torch.zeros((n, 3), dtype=torch.float32, device=dev)
+
+    light = z3()
+    reduction = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    # each ray misses at most once: record (direction, throughput) and fetch
+    # the environment once after the loop
+    miss_any = torch.zeros(n, dtype=torch.bool, device=dev)
+    miss_dir = d
+    miss_reduction = z3()
+    emission0, albedo0, point0, normal0 = z3(), z3(), z3(), z3()
+    valid0 = torch.zeros(n, dtype=torch.bool, device=dev)
+    n_lights = pk.light_table.shape[0]
+
+    t, idx = first_t, first_idx
+    for bounce in range(cfg.max_tracing_depth):
+        last = bounce == cfg.max_tracing_depth - 1
+        hit = resolve_hit(pk, orig, d, t, idx, cfg)
+
+        if bounce == 0:
+            vmask = hit.valid[..., None]
+            emission0 = torch.where(vmask, hit.mat.emissive, 0.0)
+            albedo0 = torch.where(vmask, hit.mat.base_color, 0.0)
+            valid0 = hit.valid
+            point0 = torch.where(vmask, hit.point, 0.0)
+            normal0 = torch.where(vmask, hit.normal, 0.0)
+
+        miss = alive & ~hit.valid
+        miss_dir = torch.where(miss[..., None], d, miss_dir)
+        miss_reduction = torch.where(miss[..., None], reduction, miss_reduction)
+        miss_any = miss_any | miss
+        alive = alive & hit.valid
+
+        # BSDF sample (Sobol + CPR + stream xi3)
+        sob = rng.sobol_vec2(frame + 1, bounce)
+        xi1, xi2 = rng.cranley_patterson_rotate(sob, cpr_u, cpr_v)
+        if coherent:
+            xi3, tseed = rng.rand(tseed)
+        else:
+            xi3, seed = rng.rand(seed)
+
+        v = -d
+        tb = disney.build_onb(hit.normal) if aniso else None
+        l_new = disney.sample(xi1, xi2, xi3, v, hit.normal, hit.mat, frame=tb)
+        ndotl = torch.sum(hit.normal * l_new, dim=-1)
+        alive = alive & (ndotl > 0.0)
+
+        pre = disney.precompute_view(v, hit.normal, hit.mat, frame=tb)
+        f_r, brdf_pdf = disney.evaluate_pdf_pre(pre, v, hit.normal, l_new,
+                                                hit.mat)
+        if coherent:
+            er1, tseed = rng.rand(tseed)
+            er2, tseed = rng.rand(tseed)
+            lu, tseed = rng.rand(tseed)
+        else:
+            er1, seed = rng.rand(seed)
+            er2, seed = rng.rand(seed)
+            lu, seed = rng.rand(seed)
+
+        # ONE walk (K2) for this bounce's classes, all from hit.point: the
+        # bounce ray (closest hit, not on the last bounce), the env shadow
+        # and the point shadow (any hit). Dead lanes get t_max = 0.
+        l_env, env_rad, env_p = _env_nee_sample(pk, er1, er2)
+        act_inf = torch.where(alive, INF, 0.0)
+        dirs, tms, ah = [l_env.contiguous()], [act_inf], [True]
+        if n_lights:
+            ldir, ldist, lrad = _point_nee_sample(pk, hit, lu)
+            dirs.append(ldir)
+            tms.append(torch.where(alive, ldist, 0.0))
+            ah.append(True)
+        if not last:
+            dirs.insert(0, l_new)
+            tms.insert(0, act_inf)
+            ah.insert(0, False)
+        res = tracer.multi(tables, hit.point, dirs, tms, ah)
+        ci = 0
+        if not last:
+            t_next, idx_next = res[0]
+            ci = 1
+        env_c, env_pdf_v = _env_nee_contrib(
+            hit, v, l_env, env_rad, env_p, res[ci][1] >= 0, pre)
+        if n_lights:
+            pt_c, pt_pdf_v = _point_nee_contrib(
+                n_lights, hit, v, ldir, ldist, lrad, res[ci + 1][1] >= 0, pre)
+        else:
+            pt_c = z3()
+            pt_pdf_v = torch.zeros(n, dtype=torch.float32, device=dev)
+
+        cos_term = torch.abs(ndotl)[..., None]
+        brdf_c = (hit.mat.emissive * f_r * cos_term
+                  / torch.clamp_min(brdf_pdf, 1e-12)[..., None])
+        wsum = env_pdf_v + pt_pdf_v + brdf_pdf + EPS
+        hit_light = reduction * (
+            (env_pdf_v / wsum)[..., None] * env_c
+            + (pt_pdf_v / wsum)[..., None] * pt_c
+            + (brdf_pdf / wsum)[..., None] * brdf_c)
+        light = light + torch.where(alive[..., None], hit_light, 0.0)
+
+        reduction = reduction * torch.where(
+            alive[..., None],
+            f_r * cos_term / torch.clamp_min(brdf_pdf, 1e-12)[..., None], 1.0)
+
+        orig = hit.point
+        d = torch.where(alive[..., None], l_new, d)
+        if not last:
+            t, idx = t_next, idx_next
+
+    return _ShadeOut(light=light, miss_any=miss_any, miss_dir=miss_dir,
+                     miss_reduction=miss_reduction, emission0=emission0,
+                     albedo0=albedo0, valid0=valid0, point0=point0,
+                     normal0=normal0)
+
+
+@torch.no_grad()
+def trace_paths(scene, orig: Tensor, d: Tensor, px: Tensor, py: Tensor,
+                frame: int, cfg: RenderConfig, common_origin: bool = False,
+                tracer: ktrace.Tracer = ktrace.KERNELS,
+                tables: ktrace.TraceTables | None = None,
+                pk: PackedScene | None = None) -> PTOutput:
+    """One sample per ray, up to cfg.max_tracing_depth bounces.
+
+    orig/d: (N, 3) (orig may be (1, 3) or an expanded view when
+    common_origin: every ray shares one origin); px/py: (N,) integer global
+    pixel coords (the RNG keys); frame: int. tables/pk: the scene's packed
+    traversal and shading tables, built here when not given."""
+    check_config(cfg)
+    n = d.shape[0]
+    orig = orig.expand(n, 3)
+    pk = pack_scene_tables(scene) if pk is None else pk
+    tables = ktrace.pack_scene(scene.bvh, scene.triangles) if tables is None else tables
+    aniso = resolve_aniso(scene, cfg)
+
+    t0, idx0 = tracer.packets(tables, orig, d, INF, any_hit=False,
+                              common_origin=common_origin)
+    out = _shade_loop(pk, tables, tracer, cfg, orig, d, px, py, int(frame),
+                      t0, idx0, cfg.tile_coherent_sampling, aniso)
+
+    env_rad = env.env_radiance(pk.env_image, out.miss_dir)
+    light = out.light + torch.where(out.miss_any[..., None],
+                                    env_rad * out.miss_reduction, 0.0)
+    # clamp + NaN scrub
+    light = torch.clamp(light, 0.0, cfg.clamp_threshold)
+    light = torch.where(torch.isnan(light), 0.0, light)
+
+    return PTOutput(color=light, emission=out.emission0, albedo=out.albedo0,
+                    first_hit_t=t0, first_hit_valid=out.valid0,
+                    first_hit_point=out.point0,
+                    first_hit_normal=out.normal0)

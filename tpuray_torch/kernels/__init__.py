@@ -1,0 +1,1 @@
+"""kernels layer of tpuray_torch (see the package docstring)."""

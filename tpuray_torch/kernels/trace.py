@@ -1,0 +1,281 @@
+"""BVH traversal kernels K1 (trace_packets) and K2 (trace_multi).
+
+Counterpart of tpuray/kernels/trace_pallas.py. The CUDA kernels live in
+csrc/trace.cu (see its header for the design); each wrapper here
+
+- runs the plain PyTorch version (integrator/intersect.py's skip-link
+  wavefront) when its tensors lie on the CPU;
+- on a CUDA tensor, checks device, dtype, shape and contiguity, allocates
+  the outputs, launches the kernel on the current stream, raises if the
+  launch failed, and adds one to LAUNCHES. There is no fallback.
+
+Traversal returns topology only, (t, triangle index) with (INF, -1) on a
+miss; shading re-derives everything else (integrator/path_tracer.py).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from tpuray_torch.integrator import intersect
+
+Tensor = torch.Tensor
+
+MAX_STACK = 128  # per-thread DFS stack in the kernels; checked at pack time
+MAX_LEAF = 8     # builder leaf size; checked at pack time
+
+# kernel launches since the last reset (the plain path never counts)
+LAUNCHES = {"k1": 0, "k2": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceTables:
+    """The kernels' scene operands (pack_scene), plus the skip links that
+    only the plain wavefront reads."""
+
+    meta: Tensor    # (5, n_nodes) int32 [first_tri; tri_count; right; axis; left_low]
+    aabb: Tensor    # (6, n_nodes) f32 [amin xyz; amax xyz]
+    tverts: Tensor  # (12, T) f32 [n xyz; n.p0; T1 xyz; t1w; T2 xyz; t2w]
+    skip: Tensor    # (n_nodes,) int32
+
+    @property
+    def n_nodes(self) -> int:
+        return self.meta.shape[1]
+
+    @property
+    def n_tris(self) -> int:
+        return self.tverts.shape[1]
+
+
+def _check_tree(skip: np.ndarray, count: np.ndarray) -> None:
+    """Host-side bounds the kernels rely on (checked with raises, not
+    asserts, so `python -O` keeps them): leaf size, a strict binary preorder
+    tree, and a DFS stack that fits MAX_STACK in any child order."""
+    n_nodes = skip.shape[0]
+    if count.max() > MAX_LEAF:
+        raise ValueError(f"leaf count {count.max()} > MAX_LEAF={MAX_LEAF}")
+    empty_leaf = (count == 0) & (skip == np.arange(n_nodes) + 1)
+    if empty_leaf.any():
+        raise ValueError(
+            "tree contains empty-leaf nodes (count=0, skip=i+1): a forest or "
+            "padded layout; the single-tree kernels need a strict binary tree")
+    lidx = np.minimum(np.arange(n_nodes) + 1, n_nodes - 1)
+    right = np.where(count == 0, skip[lidx], 0)
+    # the JAX package's bound: left-first DFS that pushes both children
+    stack, max_sp = [0], 1
+    while stack:
+        nd = stack.pop()
+        if count[nd] == 0:
+            stack += [int(right[nd]), nd + 1]
+            max_sp = max(max_sp, len(stack))
+    if max_sp >= MAX_STACK:
+        raise ValueError(f"BVH needs stack {max_sp} >= {MAX_STACK}")
+    # the kernels visit near-first by each ray's own direction: whatever the
+    # order, the stack holds at most one pending sibling per level
+    depth = np.zeros(n_nodes, np.int64)
+    for i in np.flatnonzero(count == 0):
+        depth[i + 1] = depth[i] + 1
+        depth[right[i]] = depth[i] + 1
+    if depth.max() + 2 > MAX_STACK:
+        raise ValueError(
+            f"BVH depth {depth.max()} overflows the kernels' stack {MAX_STACK}")
+
+
+def pack_scene(bvh, tri) -> TraceTables:
+    """Pack the SoA scene into the kernels' operand layout, on its device.
+
+    right_child of inner node i = skip[i + 1]; split_axis / left_is_low
+    drive near-first child order."""
+    if bvh.chunk_nodes:
+        raise NotImplementedError(
+            "chunked BVH forests (K6) are not ported yet (ROADMAP.md item 12)")
+    skip, count = bvh.skip.long(), bvh.tri_count.long()
+    _check_tree(skip.cpu().numpy(), count.cpu().numpy())
+    n_nodes = skip.shape[0]
+    left = torch.arange(n_nodes, device=skip.device) + 1
+    clip_l = torch.clamp_max(left, n_nodes - 1)
+    right = torch.where(count == 0, skip[clip_l], 0)
+    center = 0.5 * (bvh.aabb_min + bvh.aabb_max)
+    lc = center[clip_l]
+    rc = center[torch.clamp_max(right, n_nodes - 1)]
+    axis = torch.argmax(torch.abs(rc - lc), dim=-1)
+    left_low = (torch.gather(lc, 1, axis[:, None])
+                <= torch.gather(rc, 1, axis[:, None]))[:, 0]
+    meta = torch.stack([bvh.first_tri.long(), count, right, axis,
+                        left_low.long()]).to(torch.int32).contiguous()
+    aabb = torch.cat([bvh.aabb_min.T, bvh.aabb_max.T]).contiguous()
+    tc = intersect.triangle_constants(tri)
+    tverts = torch.cat([tc["n"].T, tc["np0"][None], tc["t1"].T,
+                        tc["t1w"][None], tc["t2"].T,
+                        tc["t2w"][None]]).contiguous()
+    return TraceTables(meta=meta, aabb=aabb, tverts=tverts,
+                       skip=bvh.skip.to(torch.int32).contiguous())
+
+
+def _constants(tables: TraceTables) -> dict[str, Tensor]:
+    tv = tables.tverts
+    return dict(n=tv[0:3].T, np0=tv[3], t1=tv[4:7].T, t1w=tv[7],
+                t2=tv[8:11].T, t2w=tv[11])
+
+
+def _rays_tmax(t_max, n: int, device) -> Tensor:
+    return torch.as_tensor(t_max, dtype=torch.float32,
+                           device=device).expand(n).contiguous()
+
+
+# ------------------------------------------------------------ plain versions
+
+def trace_packets_plain(tables: TraceTables, orig: Tensor, d: Tensor,
+                        t_max: Tensor | float, any_hit: bool = False,
+                        common_origin: bool = False) -> tuple[Tensor, Tensor]:
+    """K1's function in plain PyTorch: intersect.trace on the packed tables.
+    common_origin: orig may be (1, 3), shared by every ray."""
+    n = d.shape[0]
+    t_max = _rays_tmax(t_max, n, d.device)
+    return intersect.trace_arrays(
+        tables.aabb[0:3].T, tables.aabb[3:6].T, tables.meta[0],
+        tables.meta[1], tables.skip, _constants(tables),
+        orig.expand(n, 3), d, t_max, any_hit)
+
+
+def trace_multi_plain(tables: TraceTables, orig: Tensor,
+                      dirs: Sequence[Tensor], t_maxs: Sequence[Tensor],
+                      any_hits: Sequence[bool]) -> list[tuple[Tensor, Tensor]]:
+    """K2's function in plain PyTorch: one single-class trace per class."""
+    return [trace_packets_plain(tables, orig, d, tm, ah)
+            for d, tm, ah in zip(dirs, t_maxs, any_hits)]
+
+
+# ------------------------------------------------------------ kernel wrappers
+
+def _check(x: Tensor, name: str, dtype: torch.dtype, shape: tuple,
+           device: torch.device) -> None:
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_tables(tables: TraceTables, device: torch.device) -> None:
+    nn, nt = tables.n_nodes, tables.n_tris
+    _check(tables.meta, "meta", torch.int32, (5, nn), device)
+    _check(tables.aabb, "aabb", torch.float32, (6, nn), device)
+    _check(tables.tverts, "tverts", torch.float32, (12, nt), device)
+
+
+def _ptr(x: Tensor | None):
+    return None if x is None else x.data_ptr()
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError_t {rc}")
+
+
+def trace_packets(tables: TraceTables, orig: Tensor, d: Tensor,
+                  t_max: Tensor | float, any_hit: bool = False,
+                  common_origin: bool = False) -> tuple[Tensor, Tensor]:
+    """K1: closest-hit (or any-hit) trace of N rays.
+
+    orig (N, 3), or (1, 3) with common_origin (every ray shares it);
+    d (N, 3) f32; t_max (N,) f32 or a scalar, <= 0 marks a dead lane.
+    Returns (t (N,) f32, idx (N,) int32), (INF, -1) on a miss."""
+    if d.device.type == "cpu":
+        return trace_packets_plain(tables, orig, d, t_max, any_hit,
+                                   common_origin)
+    if d.device.type != "cuda":
+        raise ValueError(f"trace_packets: unsupported device {d.device}")
+    from tpuray_torch.kernels import build
+    dev = d.device
+    n = d.shape[0]
+    t_max = _rays_tmax(t_max, n, dev)
+    if common_origin:
+        orig = orig[:1]
+    _check_tables(tables, dev)
+    _check(orig, "orig", torch.float32, (1 if common_origin else n, 3), dev)
+    _check(d, "d", torch.float32, (n, 3), dev)
+    t_out = torch.empty(n, dtype=torch.float32, device=dev)
+    idx_out = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return t_out, idx_out
+    with torch.cuda.device(dev):
+        rc = build.load().tpuray_trace_packets(
+            tables.meta.data_ptr(), tables.aabb.data_ptr(),
+            tables.tverts.data_ptr(), tables.n_nodes, tables.n_tris,
+            orig.data_ptr(), d.data_ptr(), t_max.data_ptr(), t_out.data_ptr(),
+            idx_out.data_ptr(), n, int(any_hit), int(common_origin),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "trace_packets (K1)")
+    LAUNCHES["k1"] += 1
+    return t_out, idx_out
+
+
+def trace_multi(tables: TraceTables, orig: Tensor, dirs: Sequence[Tensor],
+                t_maxs: Sequence[Tensor], any_hits: Sequence[bool]
+                ) -> list[tuple[Tensor, Tensor]]:
+    """K2: M <= 3 ray classes from shared per-ray origins in one walk.
+
+    orig (N, 3); dirs[c] (N, 3); t_maxs[c] (N,) (<= 0: dead in class c);
+    any_hits[c] selects any-hit for class c. Returns [(t, idx)] per class,
+    each equal to its own single-class trace (any-hit: up to which
+    triangle is reported)."""
+    m = len(dirs)
+    if not (1 <= m <= 3 and len(t_maxs) == m and len(any_hits) == m):
+        raise ValueError(f"trace_multi takes 1..3 classes, got {m}")
+    if orig.device.type == "cpu":
+        return trace_multi_plain(tables, orig, dirs, t_maxs, any_hits)
+    if orig.device.type != "cuda":
+        raise ValueError(f"trace_multi: unsupported device {orig.device}")
+    from tpuray_torch.kernels import build
+    dev = orig.device
+    n = orig.shape[0]
+    _check_tables(tables, dev)
+    _check(orig, "orig", torch.float32, (n, 3), dev)
+    t_maxs = [_rays_tmax(tm, n, dev) for tm in t_maxs]
+    for c in range(m):
+        _check(dirs[c], f"dirs[{c}]", torch.float32, (n, 3), dev)
+    outs = [(torch.empty(n, dtype=torch.float32, device=dev),
+             torch.empty(n, dtype=torch.int32, device=dev)) for _ in range(m)]
+    if n == 0:
+        return outs
+    pad = [None] * (3 - m)
+    mask = sum(1 << c for c in range(m) if any_hits[c])
+    with torch.cuda.device(dev):
+        rc = build.load().tpuray_trace_multi(
+            tables.meta.data_ptr(), tables.aabb.data_ptr(),
+            tables.tverts.data_ptr(), tables.n_nodes, tables.n_tris,
+            orig.data_ptr(),
+            *[_ptr(x) for x in list(dirs) + pad],
+            *[_ptr(x) for x in t_maxs + pad],
+            *[_ptr(x) for x in [t for t, _ in outs] + pad],
+            *[_ptr(x) for x in [i for _, i in outs] + pad],
+            n, m, mask, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "trace_multi (K2)")
+    LAUNCHES["k2"] += 1
+    return outs
+
+
+@dataclasses.dataclass(frozen=True)
+class Tracer:
+    """Which traversal the integrator calls: the kernel wrappers (which run
+    the plain version on CPU tensors) or the plain versions on any device
+    (to compare a frame against on the card)."""
+
+    packets: Callable
+    multi: Callable
+
+
+KERNELS = Tracer(packets=trace_packets, multi=trace_multi)
+PLAIN = Tracer(packets=trace_packets_plain, multi=trace_multi_plain)

@@ -1,0 +1,1 @@
+"""render layer of tpuray_torch (see the package docstring)."""

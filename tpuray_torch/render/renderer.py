@@ -1,0 +1,192 @@
+"""Frame orchestration (counterpart of tpuray/render/renderer.py).
+
+One frame: camera rays in 32x32 tile order, the path tracer (K1 for the
+primaries, K2 per bounce), progressive accumulation, the G-buffer, and the
+FrameState update. This slice renders with SVGF off (the JAX package's
+"1spp path tracing" view: final == pt_color); the denoiser with K4 and K5
+is ROADMAP.md item 8.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from tpuray_torch.integrator.gather_tables import PackedScene, pack_scene_tables
+from tpuray_torch.integrator.gbuffer import GBuffer, build_gbuffer
+from tpuray_torch.integrator.intersect import norm
+from tpuray_torch.integrator.path_tracer import (
+    check_config, resolve_aniso, trace_paths)
+from tpuray_torch.kernels import trace as ktrace
+from tpuray_torch.render.frame_state import FrameState
+from tpuray_torch.render.tiling import tile_pixel_coords, untile
+from tpuray_torch.scene.config import DebugView, RenderConfig
+from tpuray_torch.scene.types import Camera
+
+Tensor = torch.Tensor
+
+
+class SVGFOutput(NamedTuple):
+    """The SVGF debug views; with SVGF off each is the path-traced color."""
+
+    reprojected: Tensor
+    reprojected_var: Tensor
+    variance_illum: Tensor
+    variance_var: Tensor
+    atrous: Tensor
+    atrous_var: Tensor
+    history_tap: Tensor
+    history_tap_var: Tensor
+    modulated: Tensor
+    taa: Tensor
+    moments: Tensor
+    history_len: Tensor
+
+
+class FrameOutputs(NamedTuple):
+    pt_color: Tensor     # (H, W, 3) 1spp (or accumulated) color
+    accum_color: Tensor  # (H, W, 3)
+    svgf: SVGFOutput
+    gbuffer: GBuffer
+    final: Tensor        # (H, W, 3)
+    coverage: Tensor     # () fraction of primary rays that hit geometry
+
+
+def tonemap(c: Tensor, limit: float = 1.5, gamma: float = 2.2) -> Tensor:
+    """Reinhard-style luminance compression, then gamma."""
+    lum = 0.3 * c[..., 0] + 0.6 * c[..., 1] + 0.1 * c[..., 2]
+    c = c / (1.0 + lum / limit)[..., None]
+    return torch.pow(torch.clamp_min(c, 0.0), 1.0 / gamma)
+
+
+def camera_rays(camera: Camera, height: int, width: int
+                ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Primary rays in 32x32-tile order -> (orig (N, 3) view, d (N, 3),
+    px, py). px/py are GL frag coords (bottom-up), padding rows included."""
+    dev = camera.eye.device
+    xx, yy = tile_pixel_coords(height, width, dev)
+    n = xx.shape[0]
+    th = camera.tan_half_fov
+    xs = (2.0 * (xx.to(torch.float32) + 0.5) / width - 1.0) * th
+    ys = -((2.0 * (yy.to(torch.float32) + 0.5) / height - 1.0) * th)
+    c = camera.cam_to_world
+    # d = cam_to_world @ (xs, ys, -1), written out elementwise
+    d = torch.stack([c[i, 0] * xs + c[i, 1] * ys + c[i, 2] * -1.0
+                     for i in range(3)], dim=-1)
+    d = d / norm(d)
+    orig = camera.eye.expand(n, 3)
+    return orig, d, xx, height - 1 - yy
+
+
+@torch.no_grad()
+def render_frame(scene, camera: Camera, state: FrameState, cfg: RenderConfig,
+                 height: int, width: int,
+                 tracer: ktrace.Tracer = ktrace.KERNELS,
+                 tables: ktrace.TraceTables | None = None,
+                 pk: PackedScene | None = None
+                 ) -> tuple[FrameState, FrameOutputs]:
+    """Render one frame and advance the temporal state."""
+    if cfg.enable_svgf:
+        raise NotImplementedError(
+            "enable_svgf=True: the SVGF denoiser (K4, K5) is ROADMAP.md "
+            "item 8 (slice 2); set enable_svgf=False")
+    frame = state.frame_idx
+    orig, d, px, py = camera_rays(camera, height, width)
+    pt = trace_paths(scene, orig, d, px, py, frame, cfg, common_origin=True,
+                     tracer=tracer, tables=tables, pk=pk)
+
+    color = untile(pt.color, height, width)
+    if cfg.accumulate:
+        t = float(np.float32(1.0) / (np.float32(frame) + np.float32(1.0)))
+        accum = state.accum_color + (color - state.accum_color) * t
+    else:
+        accum = color
+    pt_color = accum
+
+    gbuf = build_gbuffer(
+        point=untile(pt.first_hit_point, height, width),
+        normal=untile(pt.first_hit_normal, height, width),
+        valid=untile(pt.first_hit_valid, height, width),
+        view_proj=camera.view_proj, prev_view_proj=state.prev_view_proj)
+
+    z1 = torch.zeros((height, width), dtype=torch.float32, device=color.device)
+    svgf = SVGFOutput(
+        reprojected=pt_color, reprojected_var=z1, variance_illum=pt_color,
+        variance_var=z1, atrous=pt_color, atrous_var=z1,
+        history_tap=pt_color, history_tap_var=z1, modulated=pt_color,
+        taa=pt_color,
+        moments=torch.zeros((height, width, 2), dtype=torch.float32,
+                            device=color.device),
+        history_len=z1)
+    final = pt_color
+    new_state = state.replace(
+        prev_normal=gbuf.normal, prev_linear_z=gbuf.linear_z,
+        accum_color=accum, taa_color=final, frame_idx=frame + 1,
+        prev_view_proj=camera.view_proj)
+    outputs = FrameOutputs(
+        pt_color=pt_color, accum_color=accum, svgf=svgf, gbuffer=gbuf,
+        final=final,
+        coverage=torch.mean(pt.first_hit_valid.to(torch.float32)))
+    return new_state, outputs
+
+
+def select_debug_view(outputs: FrameOutputs, view: DebugView) -> Tensor:
+    table = {
+        DebugView.PATH_TRACING_1SPP: outputs.pt_color,
+        DebugView.SVGF_REPROJECTED: outputs.svgf.reprojected,
+        DebugView.SVGF_VARIANCE: outputs.svgf.variance_illum,
+        DebugView.SVGF_ATROUS: outputs.svgf.atrous,
+        DebugView.SVGF_MODULATE: outputs.svgf.modulated,
+        DebugView.TAA: outputs.svgf.taa,
+        DebugView.FINAL: outputs.final,
+        DebugView.ACCUMULATE_COLOR: outputs.accum_color,
+    }
+    return table[view]
+
+
+class Renderer:
+    """Owns the scene (on `device`), its packed tables, the config and the
+    temporal state, and drives frames."""
+
+    def __init__(self, scene, cfg: RenderConfig, device=None,
+                 tracer: ktrace.Tracer = ktrace.KERNELS):
+        if cfg.enable_svgf:
+            raise NotImplementedError(
+                "enable_svgf=True: the SVGF denoiser (K4, K5) is ROADMAP.md "
+                "item 8 (slice 2); set enable_svgf=False")
+        check_config(cfg)
+        if device is not None:
+            scene = scene.to(device)
+        if cfg.enable_aniso == "auto":
+            cfg = dataclasses.replace(cfg, enable_aniso=resolve_aniso(scene, cfg))
+        self.scene = scene
+        self.cfg = cfg
+        self.device = scene.triangles.p0.device
+        self.tracer = tracer
+        self.tables = ktrace.pack_scene(scene.bvh, scene.triangles)
+        self.pk = pack_scene_tables(scene)
+        self.state = FrameState.initial(cfg.height, cfg.width, self.device)
+        self.last_outputs: FrameOutputs | None = None
+
+    def reset(self) -> None:
+        self.state = self.state.reset_accumulation()
+
+    def step(self, camera: Camera) -> FrameOutputs:
+        self.state, out = render_frame(
+            self.scene, camera.to(self.device), self.state, self.cfg,
+            self.cfg.height, self.cfg.width, tracer=self.tracer,
+            tables=self.tables, pk=self.pk)
+        self.last_outputs = out
+        return out
+
+    def render(self, camera: Camera, n_frames: int = 1) -> FrameOutputs:
+        out = None
+        for _ in range(n_frames):
+            out = self.step(camera)
+        return out
+
+    def display_image(self, view: DebugView = DebugView.FINAL) -> np.ndarray:
+        img = select_debug_view(self.last_outputs, view)
+        return tonemap(img, self.cfg.tonemap_limit, self.cfg.gamma).cpu().numpy()

@@ -1,0 +1,1 @@
+"""sampling layer of tpuray_torch (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""scene layer of tpuray_torch (see the package docstring)."""

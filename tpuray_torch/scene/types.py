@@ -1,0 +1,201 @@
+"""Scene model as dataclasses of torch tensors (flat SoA arrays).
+
+Counterpart of tpuray/scene/types.py: the same classes and fields, held as
+plain dataclasses instead of flax pytrees. Every class has `.to(device)`.
+The scene is this system's "weights": `scene_from_numpy` carries a scene
+built by either package (flattened to numpy by `scene_to_numpy`) onto a
+device, so both packages can render the same tree.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+Tensor = torch.Tensor
+
+
+def _to(obj, device):
+    """Copy of a dataclass with every tensor field moved to `device`."""
+    kw = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor) or dataclasses.is_dataclass(v):
+            v = v.to(device)
+        kw[f.name] = v
+    return dataclasses.replace(obj, **kw)
+
+
+@dataclasses.dataclass
+class MaterialTable:
+    """Disney BSDF parameter table, one row per material. Negative
+    base_color / metallic / roughness mean "fetch from the texture stack"."""
+
+    emissive: Tensor       # (M, 3) f32
+    base_color: Tensor     # (M, 3) f32
+    subsurface: Tensor     # (M,) f32
+    metallic: Tensor
+    specular: Tensor
+    specular_tint: Tensor
+    roughness: Tensor
+    anisotropic: Tensor
+    sheen: Tensor
+    sheen_tint: Tensor
+    clearcoat: Tensor
+    clearcoat_gloss: Tensor
+    ior: Tensor
+    transmission: Tensor
+
+    @property
+    def count(self) -> int:
+        return self.subsurface.shape[0]
+
+    def to(self, device) -> "MaterialTable":
+        return _to(self, device)
+
+
+@dataclasses.dataclass
+class TriangleSoA:
+    """Triangle geometry, SoA, in BVH leaf order."""
+
+    p0: Tensor      # (T, 3) f32
+    p1: Tensor
+    p2: Tensor
+    n0: Tensor      # (T, 3) f32 vertex normals
+    n1: Tensor
+    n2: Tensor
+    uv0: Tensor     # (T, 2) f32
+    uv1: Tensor
+    uv2: Tensor
+    mat_id: Tensor  # (T,) int32
+    obj_id: Tensor  # (T,) int32
+
+    @property
+    def count(self) -> int:
+        return self.p0.shape[0]
+
+    def to(self, device) -> "TriangleSoA":
+        return _to(self, device)
+
+
+@dataclasses.dataclass
+class BVHSoA:
+    """Threaded BVH in DFS preorder with skip links (see the JAX package's
+    BVHSoA): next = node + 1 on an inner-node hit, skip[node] otherwise.
+    chunk_nodes/chunk_tris > 0 marks a chunked forest."""
+
+    aabb_min: Tensor   # (N, 3) f32
+    aabb_max: Tensor   # (N, 3) f32
+    first_tri: Tensor  # (N,) int32
+    tri_count: Tensor  # (N,) int32 (0 => inner node)
+    skip: Tensor       # (N,) int32
+    chunk_nodes: int = 0
+    chunk_tris: int = 0
+
+    @property
+    def count(self) -> int:
+        return self.aabb_min.shape[0]
+
+    def to(self, device) -> "BVHSoA":
+        return _to(self, device)
+
+
+@dataclasses.dataclass
+class PointLights:
+    position: Tensor  # (L, 3) f32
+    radiance: Tensor  # (L, 3) f32
+
+    @property
+    def count(self) -> int:
+        return self.position.shape[0]
+
+    def to(self, device) -> "PointLights":
+        return _to(self, device)
+
+
+@dataclasses.dataclass
+class EnvMap:
+    """Equirectangular HDR image + (inv_cdf_x, inv_cdf_y, pdf) cache."""
+
+    image: Tensor  # (H, W, 3) f32
+    cache: Tensor  # (H, W, 3) f32
+
+    def to(self, device) -> "EnvMap":
+        return _to(self, device)
+
+
+@dataclasses.dataclass
+class Scene:
+    triangles: TriangleSoA
+    bvh: BVHSoA
+    materials: MaterialTable
+    lights: PointLights
+    envmap: EnvMap
+    # per-object texture stack; always None until textures are ported
+    # (ROADMAP.md item 9)
+    textures: Optional[Tensor] = None
+
+    def to(self, device) -> "Scene":
+        return _to(self, device)
+
+
+@dataclasses.dataclass
+class Camera:
+    """Pinhole camera: primary dir = cam_to_world @ (px, py, -1)."""
+
+    eye: Tensor           # (3,) f32
+    cam_to_world: Tensor  # (3, 3) f32
+    view_proj: Tensor     # (4, 4) f32
+    tan_half_fov: Tensor  # () f32
+
+    def to(self, device) -> "Camera":
+        return _to(self, device)
+
+
+_GROUPS = {
+    "triangles": TriangleSoA, "bvh": BVHSoA, "materials": MaterialTable,
+    "lights": PointLights, "envmap": EnvMap,
+}
+_INT_FIELDS = {"mat_id", "obj_id", "first_tri", "tri_count", "skip"}
+
+
+def scene_to_numpy(scene) -> dict[str, np.ndarray]:
+    """Flatten a Scene of either package to {"group.field": ndarray}."""
+    out = {}
+    for group in list(_GROUPS) + ["textures"]:
+        part = getattr(scene, group)
+        if part is None:
+            continue
+        for f in dataclasses.fields(part):
+            v = getattr(part, f.name)
+            if isinstance(v, torch.Tensor):
+                v = v.detach().cpu().numpy()
+            out[f"{group}.{f.name}"] = np.asarray(v)
+    return out
+
+
+def scene_from_numpy(arrays: dict[str, np.ndarray], device="cpu") -> Scene:
+    """Build a torch Scene on `device` from `scene_to_numpy`-style arrays.
+
+    Raises NotImplementedError for what this slice does not render:
+    texture stacks (ROADMAP.md item 9) and chunked forests (item 12)."""
+    if "textures.data" in arrays:
+        raise NotImplementedError(
+            "scenes with textures are not ported yet (ROADMAP.md item 9)")
+    if int(arrays.get("bvh.chunk_nodes", 0)):
+        raise NotImplementedError(
+            "chunked BVH forests (K6) are not ported yet (ROADMAP.md item 12)")
+    parts = {}
+    for group, cls in _GROUPS.items():
+        kw = {}
+        for f in dataclasses.fields(cls):
+            key = f"{group}.{f.name}"
+            if f.name in ("chunk_nodes", "chunk_tris"):
+                continue
+            dt = np.int32 if f.name in _INT_FIELDS else np.float32
+            a = np.array(arrays[key], dtype=dt)  # a writable copy
+            kw[f.name] = torch.from_numpy(a).to(device)
+        parts[group] = cls(**kw)
+    return Scene(**parts)
