@@ -3,30 +3,46 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from csrc/ with nvcc, then:
+Builds the CUDA kernels from csrc/ with nvcc (one process per source), then:
   1. K1 (trace_packets) on the 640,000 camera primaries of an 800x800 frame
      of the 20,482-triangle test scene, against its plain PyTorch version;
   2. K2 (trace_multi) on that frame's bounce-0 classes (bounce ray, env
      shadow, point shadow), against its plain version;
-  3. the main path: Renderer under the slice config, 2 warm-up frames, then
-     16 moving-camera frames; checks the image, that both kernels ran, and
-     one frame against the same frame rendered with the plain versions.
-Any failed check raises (non-zero exit). The last two lines are the card's
-name and power limit, then {"ok": true, "device": {...}}; the line before
-them holds the kernels' launch counts, errors and times.
+  3. K4 (reproject_variance_fused) on the denoiser's inputs of the 5th frame
+     of a moving 800x800 Renderer, against its plain version;
+  4. K5 (atrous_chain, 5 iterations) on K4's output, against its plain
+     version;
+  5. the main path: Renderer under the slice config (SVGF and TAA on, the
+     default view), 2 warm-up frames, then 16 moving-camera frames with the
+     launch counts set to 0 just before and read just after; checks the
+     image and that every kernel ran; then 2 frames with the camera still
+     (the static-camera branch); then 3 frames through the kernels against
+     the same 3 frames through the plain versions;
+  6. slice 1's path (SVGF off): 8 moving frames and one frame against the
+     plain-version frame;
+  7. the SVGF chain (K4, K5 x 5, modulate, TAA) on one 1920x1080 frame's
+     inputs, the median of 10.
+Any failed check raises (non-zero exit). The last lines are the kernels'
+JSON line (launches, errors, times and bounds), the card's name and power
+limit, then {"ok": true, "device": {...}}.
 Needs no network and no jax. Exits non-zero without a CUDA device.
 """
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import torch
 
+from tpuray_torch.denoise.svgf import svgf_pipeline
 from tpuray_torch.integrator.intersect import INF
 from tpuray_torch.integrator.path_tracer import trace_paths
+from tpuray_torch.kernels import atrous as ka
 from tpuray_torch.kernels import build
+from tpuray_torch.kernels import reproject as kr
 from tpuray_torch.kernels import trace as kt
 from tpuray_torch.render.renderer import Renderer, camera_rays
 from tpuray_torch.scene.camera import OrbitCamera
@@ -34,11 +50,34 @@ from tpuray_torch.scene.config import RenderConfig
 from tpuray_torch.scene.procedural import make_test_scene
 
 H = W = 800
-SLICE = RenderConfig(width=W, height=H, enable_svgf=False, compact_frac=0.0,
-                     compact_auto=False)
+# slice 2: the default view (SVGF + TAA on) without compaction (item 10)
+SLICE = RenderConfig(width=W, height=H, compact_frac=0.0, compact_auto=False)
+SLICE_PLAIN = dataclasses.replace(SLICE, pallas_denoise=False)
+SLICE1 = dataclasses.replace(SLICE, enable_svgf=False)  # slice 1: SVGF off
 TIMED_FRAMES = 16
+SLICE1_FRAMES = 8
 KERNEL_REPS = 20
-MAX_MISMATCH = 1e-4  # idx / hit-miss may differ on at most 0.01% of rays
+MAX_MISMATCH = 1e-4  # idx / hit-miss / validity may differ on <= 0.01%
+RTOL, ATOL = 1e-5, 1e-6  # K4 and K5 against their plain versions
+
+# H100 SXM published peaks (NVIDIA's data sheet, 700 W): HBM bytes/s and
+# float32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# float operations per unit of work, counted from the code:
+BOX_OPS = 26    # intersect.ray_aabb: 12 sub/mul, 6 min/max, 4 reductions, 4 compares
+TRI_OPS = 38    # intersect.ray_triangle_pre: 2 dots, divide, point, 2 planes, 6 tests
+K4_PIXEL_OPS = 190      # reproject pass: demodulate, uv, 4 taps x 30, EMA tail
+K4_RESCUE_OPS = 580     # + 16 rescue taps x 36, where the reprojection failed
+K4_FALLBACK_OPS = 2156  # + 7x7 fallback, 49 taps x 44, where history < 4
+K5_PIXEL_OPS = 1068     # one a-trous iteration: 24 taps x 43 + pre-blur, phi, divides
+
+
+class ChainOut(NamedTuple):  # K5's outputs, for check_fields
+    illum: torch.Tensor
+    variance: torch.Tensor
+    tap_illum: torch.Tensor
+    tap_variance: torch.Tensor
 
 
 def log(msg: str) -> None:
@@ -65,6 +104,27 @@ def once_ms(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(least ms the card could take, which term bounds it)."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def reset_launches() -> None:
+    kt.reset_launches()
+    kr.reset_launches()
+    ka.reset_launches()
+
+
+def launches() -> dict:
+    return {**kt.LAUNCHES, **kr.LAUNCHES, **ka.LAUNCHES}
 
 
 def check_closest(name, t, i, t_p, i_p):
@@ -95,14 +155,81 @@ def check_any(name, i, i_p):
         raise AssertionError(f"{name}: {n_diff} hit/miss mismatches")
 
 
-def assert_images_close(a, b, tol=5e-4, outlier_frac=0.005, outlier_max=0.1):
+def check_fields(name, got, ref, valid=None) -> float:
+    """Every field of got within RTOL / ATOL of ref (where valid); returns
+    the largest absolute difference."""
+    err = 0.0
+    for f in got._fields:
+        a, b = getattr(got, f), getattr(ref, f)
+        if valid is not None:
+            a, b = a[valid], b[valid]
+        d = (a - b).abs()
+        bad = int((d > ATOL + RTOL * b.abs()).sum())
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+        if bad or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{name}.{f}: {bad} values beyond rtol {RTOL} / "
+                                 f"atol {ATOL} (max |diff| {float(d.max()):.3g})")
+    log(f"{name}: {len(got._fields)} outputs within rtol {RTOL} / atol {ATOL}, "
+        f"max |diff| {err:.3g}")
+    return err
+
+
+def assert_images_close(name, a, b, tol=5e-4, outlier_frac=0.005, outlier_max=0.1):
     """tests/test_dist_frame.py's image tolerance."""
     d = (a - b).abs().amax(-1)
     frac = float((d > tol).float().mean())
     dmax = float(d.max())
-    log(f"frame kernel vs plain: pixels>{tol}={frac:.4%} max_diff={dmax:.3g}")
+    log(f"{name}: pixels>{tol}={frac:.4%} max_diff={dmax:.3g}")
     if frac > outlier_frac or dmax >= outlier_max:
-        raise AssertionError("kernel frame differs from the plain-version frame")
+        raise AssertionError(f"{name}: the kernel frame differs from the plain-version frame")
+
+
+def check_image(out, svgf_on: bool) -> None:
+    img = out.final
+    if img.shape != out.pt_color.shape or img.shape[-1] != 3:
+        raise AssertionError(f"frame has shape {tuple(img.shape)}")
+    if not bool(torch.isfinite(img).all()):
+        raise AssertionError("frame is not finite")
+    if not svgf_on and bool((img < 0).any()):
+        raise AssertionError("frame has negative radiance")
+    if svgf_on == torch.equal(out.final, out.pt_color):
+        raise AssertionError("final equals pt_color with SVGF on, or differs with it off")
+    if not 0.05 < float(out.coverage) < 1.0 or float(img.mean()) <= 0.0:
+        raise AssertionError("implausible frame (coverage or mean)")
+
+
+class RecordK4:
+    """Records the inputs of the next K4 call the denoiser makes."""
+
+    def __init__(self):
+        self.inputs = None
+
+    def __enter__(self):
+        self.real = kr.reproject_variance_fused
+
+        def recording(cfg, **inputs):
+            self.inputs = {k: v.clone() for k, v in inputs.items()}
+            return self.real(cfg, **inputs)
+
+        kr.reproject_variance_fused = recording
+        return self
+
+    def __exit__(self, *exc):
+        kr.reproject_variance_fused = self.real
+
+
+def moving_renderer(scene, cfg, frames: int, tracer=kt.KERNELS):
+    """A Renderer stepped through `frames` moving frames; records the last
+    frame's K4 inputs and the state it started from."""
+    r = Renderer(scene, cfg, tracer=tracer)
+    cam = OrbitCamera(width=cfg.width, height=cfg.height)
+    for _ in range(frames - 1):
+        r.step(cam.snapshot())
+        cam.rotate(0.5, 0.0)
+    state = r.state
+    with RecordK4() as rec:
+        out = r.step(cam.snapshot())
+    return r, cam, out, state, rec.inputs
 
 
 def main() -> None:
@@ -120,7 +247,7 @@ def main() -> None:
            else "already built from these sources")
     log(f"build: {time.perf_counter() - t0:.2f} s ({how}) -> {build.library_path()}")
     for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
 
     # ---- scene
@@ -130,22 +257,27 @@ def main() -> None:
     torch.cuda.synchronize()
     log(f"scene: {scene.triangles.count} triangles, {scene.bvh.count} nodes, "
         f"host build + upload {time.perf_counter() - t0:.2f} s")
+    table_bytes = nbytes(tables.meta, tables.aabb, tables.tverts)
 
-    cam = OrbitCamera(width=W, height=H)
-    camera = cam.snapshot(dev)
+    camera = OrbitCamera(width=W, height=H).snapshot(dev)
     orig, d, px, py = camera_rays(camera, H, W)
 
-    # ---- K1: camera primaries
+    # ---- 1. K1: camera primaries
     t_k, i_k = kt.trace_packets(tables, orig, d, INF, common_origin=True)
     (t_p, i_p), k1_plain_ms = once_ms(
         lambda: kt.trace_packets_plain(tables, orig, d, INF, common_origin=True))
     k1_err = check_closest("K1 primaries", t_k, i_k, t_p, i_p)
     k1_ms = kernel_ms(lambda: kt.trace_packets(tables, orig, d, INF,
                                                common_origin=True))
+    work = {}
+    kt.trace_packets_plain(tables, orig, d, INF, common_origin=True, stats=work)
+    k1_bound = bound(table_bytes + nbytes(orig[:1], d, t_k, i_k) + 4 * d.shape[0],
+                     work["box_tests"] * BOX_OPS + work["tri_tests"] * TRI_OPS)
     log(f"K1: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.1f} ms "
-        f"({d.shape[0] / k1_ms / 1e3:.1f} Mrays/s)")
+        f"({d.shape[0] / k1_ms / 1e3:.1f} Mrays/s); work {work}; "
+        f"bound {k1_bound[0]:.4f} ms by {k1_bound[1]}")
 
-    # ---- K2: bounce-0 classes of the same frame, captured from the tracer
+    # ---- 2. K2: bounce-0 classes of the same frame, captured from the tracer
     captured = []
 
     def recording_multi(tabs, o, dirs, tms, ah):
@@ -166,55 +298,168 @@ def main() -> None:
     check_any("K2 env-shadow class", got[1][1], ref[1][1])
     check_any("K2 point-shadow class", got[2][1], ref[2][1])
     k2_ms = kernel_ms(lambda: kt.trace_multi(tables, o2, dirs, tms, ah))
+    work = {}
+    kt.trace_multi_plain(tables, o2, dirs, tms, ah, stats=work)
+    k2_bound = bound(table_bytes + nbytes(o2, *dirs, *tms, *[x for g in got for x in g]),
+                     work["box_tests"] * BOX_OPS + work["tri_tests"] * TRI_OPS)
     log(f"K2: kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.1f} ms "
-        f"(live lanes {int((tms[0] > 0).sum())} of {o2.shape[0]})")
+        f"(live lanes {int((tms[0] > 0).sum())} of {o2.shape[0]}); work {work}; "
+        f"bound {k2_bound[0]:.4f} ms by {k2_bound[1]}")
 
-    # ---- the main path: moving-camera frames through the Renderer
-    r = Renderer(scene, SLICE, device=dev)
+    # ---- 3. K4 on the denoiser's inputs of the 5th moving frame
+    _, _, _, _, k4_in = moving_renderer(scene, SLICE, 5)
+    k4 = kr.reproject_variance_fused(SLICE, **k4_in)
+    k4_ref, k4_plain_ms = once_ms(lambda: kr.reproject_variance_plain(SLICE, **k4_in))
+    sky = k4_in["linear_z"] == 1.0
+    hl_k, hl_p = k4.history_len, k4_ref.history_len
+    n_px = hl_p.numel()
+    shares = dict(sky=float(sky.float().mean()),
+                  reprojected=float(((hl_p > 1) & ~sky).float().mean()),
+                  restarted=float(((hl_p == 1) & ~sky).float().mean()),
+                  fallback=float(((hl_p < 4) & ~sky).float().mean()))
+    log(f"K4 inputs (frame 5): pixel shares {shares}")
+    if shares["reprojected"] <= 0.0 or shares["fallback"] <= 0.0:
+        raise AssertionError("K4 inputs do not exercise both the reprojection and the fallback")
+    hl_diff = hl_k != hl_p
+    n_hl = int(hl_diff.sum())
+    log(f"K4: history_len differs on {n_hl} of {n_px} pixels (validity)")
+    if n_hl > MAX_MISMATCH * n_px:
+        raise AssertionError(f"K4: validity differs on {n_hl} pixels")
+    # a pixel whose validity differs moves the 7x7 fallback around it
+    near = torch.nn.functional.max_pool2d(hl_diff.float()[None, None], 7, 1, 3)[0, 0] > 0
+    k4_err = check_fields("K4 vs plain", k4, k4_ref, valid=~near)
+    k4_ms = kernel_ms(lambda: kr.reproject_variance_fused(SLICE, **k4_in))
+    n_fail = int(((hl_p == 1) & ~sky).sum())
+    n_fallback = int(((hl_p < 4) & ~sky).sum())
+    k4_bound = bound(nbytes(*k4_in.values(), *k4),
+                     int((~sky).sum()) * K4_PIXEL_OPS + n_fail * K4_RESCUE_OPS
+                     + n_fallback * K4_FALLBACK_OPS)
+    log(f"K4: kernel {k4_ms:.4f} ms, plain {k4_plain_ms:.1f} ms, "
+        f"bound {k4_bound[0]:.4f} ms by {k4_bound[1]}")
+
+    # ---- 4. K5: the 5-iteration chain on K4's output
+    k5_args = (k4.var_illum, k4.var_variance, k4_in["normal"], k4_in["linear_z"],
+               k4_in["fwidth_z"], SLICE)
+    (fi, fv), (ti, tv) = ka.atrous_chain(*k5_args)
+    ((ri, rv), (rti, rtv)), k5_plain_ms = once_ms(lambda: ka.atrous_chain_plain(*k5_args))
+    k5_err = check_fields("K5 vs plain", ChainOut(fi, fv, ti, tv),
+                          ChainOut(ri, rv, rti, rtv))
+    n_iter = SLICE.num_atrous_iterations
+    k5_ms = kernel_ms(lambda: ka.atrous_chain(*k5_args))
+    k5_bound = bound(nbytes(*k5_args[:5], fi, fv, ti, tv),
+                     int((~sky).sum()) * n_iter * K5_PIXEL_OPS)
+    log(f"K5: chain of {n_iter} {k5_ms:.4f} ms ({k5_ms / n_iter:.4f} ms per iteration, "
+        f"packing included), plain {k5_plain_ms:.1f} ms, "
+        f"bound {k5_bound[0]:.4f} ms by {k5_bound[1]}")
+
+    # ---- 5. the main path: moving-camera frames with SVGF + TAA
+    r = Renderer(scene, SLICE)
     cam = OrbitCamera(width=W, height=H)
     for _ in range(2):
-        r.step(cam.snapshot(dev))
+        r.step(cam.snapshot())
         cam.rotate(0.5, 0.0)
     torch.cuda.synchronize()
-    kt.reset_launches()
-    frame_ms = []
+    reset_launches()
+    frame_ms, hist_max = [], []
     for _ in range(TIMED_FRAMES):
         cam.rotate(0.5, 0.0)
         t0 = time.perf_counter()
-        out = r.step(cam.snapshot(dev))
+        out = r.step(cam.snapshot())
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = dict(kt.LAUNCHES)
-    log(f"frames: {TIMED_FRAMES} at {W}x{H}, median {statistics.median(frame_ms):.3f} ms, "
+        hist_max.append(float(out.svgf.history_len.max()))
+    main_launches = launches()
+    log(f"SVGF frames: {TIMED_FRAMES} at {W}x{H}, median {statistics.median(frame_ms):.3f} ms, "
         f"max {max(frame_ms):.3f} ms, min {min(frame_ms):.3f} ms, "
-        f"coverage {float(out.coverage):.4f}, launches {launches}")
-    if launches["k1"] < 1 or launches["k2"] < 1:
-        raise AssertionError(f"the main path skipped a kernel: {launches}")
-    img = out.final
-    if tuple(img.shape) != (H, W, 3) or not bool(torch.isfinite(img).all()):
-        raise AssertionError("frame is not a finite (H, W, 3) image")
-    if bool((img < 0).any()):
-        raise AssertionError("frame has negative radiance")
-    if not torch.equal(out.final, out.pt_color):
-        raise AssertionError("with SVGF off, final must equal pt_color")
-    if not 0.05 < float(out.coverage) < 1.0 or float(img.mean()) <= 0.0:
-        raise AssertionError("implausible frame (coverage or mean)")
+        f"coverage {float(out.coverage):.4f}, launches {main_launches}")
+    want = dict(k1=TIMED_FRAMES, k2=2 * TIMED_FRAMES, k4=TIMED_FRAMES,
+                k5=SLICE.num_atrous_iterations * TIMED_FRAMES)
+    short = {k: (main_launches[k], n) for k, n in want.items() if main_launches[k] < n}
+    if short:
+        raise AssertionError(f"the main path launched a kernel too few times: {short}")
+    check_image(out, svgf_on=True)
+    if not hist_max[-1] > hist_max[0] > 1.0:
+        raise AssertionError(f"history_len does not grow: {hist_max}")
+    log(f"history_len max per frame {hist_max[0]:.0f} -> {hist_max[-1]:.0f}")
 
-    # one frame with the plain versions forced, on the same card
+    # the camera still: the static-camera branch (no K4; K5 still runs)
+    reset_launches()
+    for _ in range(2):
+        out = r.step(cam.snapshot())
+    still = launches()
+    log(f"still frames: 2, launches {still}")
+    if still["k4"] != 0 or still["k5"] != 2 * SLICE.num_atrous_iterations:
+        raise AssertionError(f"the still frames did not take the static branch: {still}")
+    check_image(out, svgf_on=True)
+
+    # 3 frames through the kernels against the same 3 through the plain versions
+    out_k = moving_renderer(scene, SLICE, 3)[2]
+    (_, _, out_p, _, _), plain_frames_ms = once_ms(
+        lambda: moving_renderer(scene, SLICE_PLAIN, 3, tracer=kt.PLAIN))
+    log(f"plain-version frames: 3 in {plain_frames_ms:.1f} ms (set-up included)")
+    assert_images_close("SVGF frame 3 final, kernels vs plain", out_k.final, out_p.final)
+
+    # ---- 6. slice 1's path: SVGF off
+    r = Renderer(scene, SLICE1)
+    cam = OrbitCamera(width=W, height=H)
+    for _ in range(2):
+        r.step(cam.snapshot())
+        cam.rotate(0.5, 0.0)
+    torch.cuda.synchronize()
+    reset_launches()
+    frame1_ms = []
+    for _ in range(SLICE1_FRAMES):
+        cam.rotate(0.5, 0.0)
+        t0 = time.perf_counter()
+        out = r.step(cam.snapshot())
+        torch.cuda.synchronize()
+        frame1_ms.append((time.perf_counter() - t0) * 1e3)
+    s1 = launches()
+    log(f"SVGF-off frames: {SLICE1_FRAMES} at {W}x{H}, median "
+        f"{statistics.median(frame1_ms):.3f} ms, max {max(frame1_ms):.3f} ms, "
+        f"min {min(frame1_ms):.3f} ms, launches {s1}")
+    if s1["k1"] < SLICE1_FRAMES or s1["k2"] < 2 * SLICE1_FRAMES or s1["k4"] or s1["k5"]:
+        raise AssertionError(f"SVGF-off launches {s1}")
+    check_image(out, svgf_on=False)
     cam = OrbitCamera(width=W, height=H, yaw_deg=15.0)
-    out_k = Renderer(scene, SLICE, device=dev).step(cam.snapshot(dev))
-    out_p, plain_frame_ms = once_ms(
-        lambda: Renderer(scene, SLICE, device=dev, tracer=kt.PLAIN).step(cam.snapshot(dev)))
-    log(f"plain-version frame: {plain_frame_ms:.1f} ms (set-up included)")
-    assert_images_close(out_k.pt_color, out_p.pt_color)
+    out_k = Renderer(scene, SLICE1).step(cam.snapshot())
+    out_p = Renderer(scene, SLICE1, tracer=kt.PLAIN).step(cam.snapshot())
+    assert_images_close("SVGF-off frame, kernels vs plain", out_k.pt_color, out_p.pt_color)
+
+    # ---- 7. the SVGF chain at 1920x1080 on one frame's inputs
+    cfg_hd = dataclasses.replace(SLICE, width=1920, height=1080)
+    _, _, out_hd, state_hd, in_hd = moving_renderer(scene, cfg_hd, 2)
+
+    def chain_hd():
+        return svgf_pipeline(in_hd["color"], in_hd["emission"], in_hd["albedo"],
+                             out_hd.gbuffer, state_hd, cfg_hd)
+
+    chain_ms = [once_ms(chain_hd)[1] for _ in range(12)][2:]
+    hd = chain_hd()
+    if not all(bool(torch.isfinite(x).all()) for x in hd):
+        raise AssertionError("1080p SVGF chain output is not finite")
+    assert_images_close("1080p chain vs its frame", hd.taa, out_hd.svgf.taa)
+    log(f"svgf_chain_ms_moving_1080p: median {statistics.median(chain_ms):.3f} ms "
+        f"of {len(chain_ms)} (min {min(chain_ms):.3f}, max {max(chain_ms):.3f})")
+
+    def entry(name, source, replaces, key, err, ms, plain_ms, b):
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=main_launches[key], max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None)
 
     kernels = [
-        dict(name="K1 trace_packets", route="cuda", source="tpuray_torch/csrc/trace.cu",
-             replaces="tpuray/kernels/trace_pallas.py:233", launches=launches["k1"],
-             max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms),
-        dict(name="K2 trace_multi", route="cuda", source="tpuray_torch/csrc/trace.cu",
-             replaces="tpuray/kernels/trace_pallas.py:416", launches=launches["k2"],
-             max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms),
+        entry("K1 trace_packets", "tpuray_torch/csrc/trace.cu",
+              "tpuray/kernels/trace_pallas.py:233", "k1", k1_err, k1_ms, k1_plain_ms,
+              k1_bound),
+        entry("K2 trace_multi", "tpuray_torch/csrc/trace.cu",
+              "tpuray/kernels/trace_pallas.py:416", "k2", k2_err, k2_ms, k2_plain_ms,
+              k2_bound),
+        entry("K4 reproject_variance_fused", "tpuray_torch/csrc/reproject.cu",
+              "tpuray/kernels/reproject_pallas.py:94", "k4", k4_err, k4_ms,
+              k4_plain_ms, k4_bound),
+        entry("K5 atrous_chain", "tpuray_torch/csrc/atrous.cu",
+              "tpuray/kernels/atrous_pallas.py:99", "k5", k5_err, k5_ms, k5_plain_ms,
+              k5_bound),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

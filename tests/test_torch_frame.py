@@ -1,5 +1,6 @@
-"""The slice end to end: tpuray_torch's integrator and Renderer vs tpuray's
-on the CPU, under the slice config (SVGF off, no compaction).
+"""The port end to end: tpuray_torch's integrator and Renderer vs tpuray's
+on the CPU (device="cpu"), without compaction, with SVGF off (slice 1) and
+on (slice 2, the default view).
 
 - trace_paths on 1,024 rays: the tolerances of
   tests/test_pallas_kernel.py:test_fused_secondary_matches_separate_integrator
@@ -13,7 +14,12 @@ on the CPU, under the slice config (SVGF off, no compaction).
   image tolerance of tests/test_dist_frame.py (all but 0.5% of pixels within
   5e-4, none beyond 0.1: a one-ulp shift can flip a grazing shadow test),
   first-hit validity and coverage exact, G-buffer linear_z within rtol 1e-5.
-- a fresh interpreter with jax blocked imports tpuray_torch and renders.
+- SVGF and TAA on: 3 moving frames and 1 still frame at 48x48 (the still
+  one takes the static-camera branch on both sides): final, the modulated
+  image and the history tap with the same image tolerance, the displayed
+  image within atol 2e-3.
+- a fresh interpreter with jax blocked imports tpuray_torch and renders
+  with SVGF on.
 """
 import os
 import subprocess
@@ -39,6 +45,7 @@ from tpuray_torch.scene.types import scene_from_numpy, scene_to_numpy
 torch.set_num_threads(2)
 
 SLICE = dict(enable_svgf=False, compact_frac=0.0, compact_auto=False)
+SVGF_SLICE = dict(compact_frac=0.0, compact_auto=False)  # the default view
 H = W = 48
 
 
@@ -92,7 +99,8 @@ def test_trace_paths_matches(scenes, extra):
 def test_renderer_moving_frames_match(scenes):
     js, ts = scenes
     jr = tpuray.Renderer(js, JRenderConfig(width=W, height=H, **SLICE))
-    tr = tpuray_torch.Renderer(ts, RenderConfig(width=W, height=H, **SLICE))
+    tr = tpuray_torch.Renderer(ts, RenderConfig(width=W, height=H, **SLICE),
+                               device="cpu")
     jcam, tcam = JOrbitCamera(width=W, height=H), OrbitCamera(width=W, height=H)
     for frame in range(2):
         jo = jr.step(jcam.snapshot())
@@ -114,8 +122,52 @@ def test_renderer_moving_frames_match(scenes):
     np.testing.assert_allclose(img, jr.display_image(), atol=2e-3)
 
 
+@pytest.fixture(scope="module")
+def svgf_frames(scenes):
+    """3 moving frames, then 1 with the camera still, on both Renderers."""
+    js, ts = scenes
+    jr = tpuray.Renderer(js, JRenderConfig(width=W, height=H, **SVGF_SLICE))
+    tr = tpuray_torch.Renderer(ts, RenderConfig(width=W, height=H, **SVGF_SLICE),
+                               device="cpu")
+    jcam, tcam = JOrbitCamera(width=W, height=H), OrbitCamera(width=W, height=H)
+    frames = []
+    for frame in range(4):
+        if frame < 3:
+            jcam.rotate(0.5, 0.0)
+            tcam.rotate(0.5, 0.0)
+        jo, to = jr.step(jcam.snapshot()), tr.step(tcam.snapshot())
+        frames.append((jo, to, jr.display_image(), tr.display_image()))
+    return frames
+
+
+@pytest.mark.parametrize("frame", [0, 1, 2, 3], ids=["moving0", "moving1",
+                                                     "moving2", "still"])
+def test_renderer_svgf_frames_match(svgf_frames, frame):
+    jo, to, jimg, timg = svgf_frames[frame]
+    msg = f"frame {frame}"
+    assert_images_close(to.final.numpy(), jo.final, msg=msg + " final")
+    assert_images_close(to.svgf.modulated.numpy(), jo.svgf.modulated,
+                        msg=msg + " modulated")
+    assert_images_close(to.svgf.history_tap.numpy(), jo.svgf.history_tap,
+                        msg=msg + " history_tap")
+    np.testing.assert_allclose(timg, jimg, atol=2e-3, err_msg=msg)
+    assert not torch.equal(to.final, to.pt_color)  # the denoiser ran
+    hl = to.svgf.history_len
+    assert float(hl.max()) == min(frame + 1, 32)  # history grows
+
+
+def test_renderer_needs_cuda_unless_asked_for_cpu(scenes, monkeypatch):
+    _, ts = scenes
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = RenderConfig(width=16, height=16, **SVGF_SLICE)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tpuray_torch.Renderer(ts, cfg)
+    assert tpuray_torch.Renderer(ts, cfg, device="cpu").device.type == "cpu"
+
+
 @pytest.mark.parametrize("field,value,item", [
-    ("enable_svgf", True, "item 8"),
+    ("reproject_gather", "tiled", "TPU-only"),
+    ("fast_reproject", True, "TPU-only"),
     ("compact_frac", 0.5, "item 10"),
     ("compact_auto", True, "item 10"),
     ("integrator", "mis", "item 11"),
@@ -124,9 +176,9 @@ def test_renderer_moving_frames_match(scenes):
 ])
 def test_unported_config_raises(scenes, field, value, item):
     _, ts = scenes
-    cfg = RenderConfig(width=16, height=16, **dict(SLICE, **{field: value}))
+    cfg = RenderConfig(width=16, height=16, **dict(SVGF_SLICE, **{field: value}))
     with pytest.raises(NotImplementedError, match=item):
-        tpuray_torch.Renderer(ts, cfg)
+        tpuray_torch.Renderer(ts, cfg, device="cpu")
 
 
 def test_renders_without_jax():
@@ -141,11 +193,14 @@ torch.set_num_threads(2)
 from tpuray_torch import Renderer, RenderConfig
 from tpuray_torch.scene.camera import OrbitCamera
 from tpuray_torch.scene.procedural import make_test_scene
-cfg = RenderConfig(width=16, height=16, enable_svgf=False, compact_frac=0.0,
-                   compact_auto=False)
-r = Renderer(make_test_scene(subdiv=1, env_width=32), cfg)
-out = r.step(OrbitCamera(width=16, height=16).snapshot())
+cfg = RenderConfig(width=16, height=16, compact_frac=0.0, compact_auto=False)
+r = Renderer(make_test_scene(subdiv=1, env_width=32), cfg, device="cpu")
+cam = OrbitCamera(width=16, height=16)
+for _ in range(2):
+    out = r.step(cam.snapshot())
+    cam.rotate(0.5, 0.0)
 assert torch.isfinite(out.final).all() and out.final.shape == (16, 16, 3)
+assert not torch.equal(out.final, out.pt_color)
 assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v}
 print("ok", float(out.coverage))
 """

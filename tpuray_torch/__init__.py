@@ -3,12 +3,15 @@
 The package mirrors tpuray/'s layout and names module for module. It
 imports torch and numpy only, never jax or tpuray: the JAX package stays
 as the reference, and tests/test_torch_*.py hold each module against it on
-the CPU. The BVH traversal kernels (K1 trace_packets, K2 trace_multi) are
-hand-written CUDA in csrc/trace.cu, built with nvcc at first use; on CPU
+the CPU. The kernels are hand-written CUDA in csrc/, built with nvcc at
+first use: the BVH traversal (K1 trace_packets, K2 trace_multi), the SVGF
+reproject + variance pass (K4) and the a-trous iteration (K5). On CPU
 tensors their wrappers run the plain PyTorch versions.
 
-This slice renders a moving-camera frame with SVGF off; see ROADMAP.md for
-what raises NotImplementedError until later slices.
+The Renderer renders the default view (SVGF + TAA) of a moving camera on
+the card (device="cuda" by default; pass device="cpu" to render on the
+CPU); see ROADMAP.md for what raises NotImplementedError until later
+slices.
 """
 
 __version__ = "0.1.0"

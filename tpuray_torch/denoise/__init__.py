@@ -1,0 +1,1 @@
+"""denoise layer of tpuray_torch (see the package docstring)."""

@@ -104,9 +104,14 @@ def safe_inv(d: Tensor) -> Tensor:
 def trace_arrays(aabb_min: Tensor, aabb_max: Tensor, first_tri: Tensor,
                  tri_count: Tensor, skip: Tensor, tc: dict[str, Tensor],
                  orig: Tensor, d: Tensor, t_max: Tensor | float = INF,
-                 any_hit: bool = False) -> tuple[Tensor, Tensor]:
+                 any_hit: bool = False, stats: dict | None = None
+                 ) -> tuple[Tensor, Tensor]:
     """The skip-link wavefront over raw node arrays and triangle constants
-    (`trace` and the kernels' plain path both land here)."""
+    (`trace` and the kernels' plain path both land here).
+
+    stats: if given, adds the box tests and triangle tests these rays
+    needed to stats["box_tests"] and stats["tri_tests"] (the work a
+    roofline bound counts)."""
     n_nodes = aabb_min.shape[0]
     n_tris = tc["np0"].shape[0]
     n = orig.shape[0]
@@ -129,6 +134,8 @@ def trace_arrays(aabb_min: Tensor, aabb_max: Tensor, first_tri: Tensor,
     j = torch.zeros(n, dtype=torch.long, device=dev)
     t = torch.full((n,), INF, dtype=torch.float32, device=dev)
     idx = torch.full((n,), -1, dtype=torch.long, device=dev)
+    n_box = torch.zeros((), dtype=torch.long, device=dev)
+    n_tri = torch.zeros((), dtype=torch.long, device=dev)
     step = 0
     while True:
         active = node < n_nodes
@@ -147,6 +154,9 @@ def trace_arrays(aabb_min: Tensor, aabb_max: Tensor, first_tri: Tensor,
             True)
 
         do_tri = active & is_leaf & box_ok
+        if stats is not None:
+            n_box += (active & entering).sum()
+            n_tri += do_tri.sum()
         ti = torch.clamp(first + j, 0, n_tris - 1)
         hit, t_tri = ray_triangle_pre(ox, oy, oz, dx, dy, dz,
                                       *rows[ti].unbind(1))
@@ -164,6 +174,9 @@ def trace_arrays(aabb_min: Tensor, aabb_max: Tensor, first_tri: Tensor,
             node_next = torch.where(idx >= 0, n_nodes, node_next)
         node = torch.where(active, node_next, node)
         j = torch.where(active, j_next, j)
+    if stats is not None:
+        stats["box_tests"] = stats.get("box_tests", 0) + int(n_box)
+        stats["tri_tests"] = stats.get("tri_tests", 0) + int(n_tri)
     return t, idx.to(torch.int32)
 
 

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels (csrc/*.cu) at first use.
 
-nvcc compiles the sources of this checkout into a shared library with a
-plain C interface, under build/tpuray_torch/<hash>/ at the repository root
+nvcc compiles the sources of this checkout, one process per source, all
+started together, and links them into one shared library with a plain C
+interface, under build/tpuray_torch/<hash>/ at the repository root
 (git-ignored), keyed by a hash of the sources and flags; ctypes loads it.
 No PyTorch headers are involved, so a build takes seconds.
 
@@ -19,18 +20,22 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "trace.cu",)
+SOURCES = tuple(_PKG / "csrc" / f for f in ("trace.cu", "reproject.cu", "atrous.cu"))
 BUILD_ROOT = _PKG.parent / "build" / "tpuray_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "tpuray_trace_packets": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                              _I, _I, _I, _P],
     "tpuray_trace_multi": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "tpuray_reproject_variance": [_P] * 20 + [_I, _I, _F, _F, _F, _F, _F, _I,
+                                              _F, _I, _P],
+    "tpuray_atrous_step": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -63,18 +68,53 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs = [str(out.parent / f"{src.stem}.{tag}.o") for src in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            for obj, src in zip(objs, SOURCES)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    tmp = out.with_name(f".{out.name}.{tag}")
+    link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *objs]
+    failed = [c for c, p in zip(cmds, procs) if p.returncode != 0]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(link)
     build_seconds = time.perf_counter() - start
-    build_log = proc.stdout + proc.stderr
-    (out.parent / "build.log").write_text(" ".join(cmd) + "\n" + build_log)
-    if proc.returncode != 0:
+    build_log = "".join(" ".join(c) + "\n" + log
+                        for c, log in zip(cmds + [link], logs))
+    (out.parent / "build.log").write_text(build_log)
+    for o in objs:
+        Path(o).unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        raise RuntimeError(f"nvcc failed ({' '.join(failed[0])}):\n{build_log}")
     os.replace(tmp, out)  # atomic: concurrent builders never see half a file
     return out
+
+
+def check(x, name: str, dtype, shape: tuple, device) -> None:
+    """Raise unless tensor x is what a kernel takes: on `device`, of `dtype`
+    and `shape`, contiguous."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def raise_on(rc: int, what: str) -> None:
+    """Raise if a launch returned a cudaError_t other than cudaSuccess."""
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError_t {rc}")
 
 
 def load() -> ctypes.CDLL:

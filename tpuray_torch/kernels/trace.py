@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from tpuray_torch.integrator import intersect
+from tpuray_torch.kernels import build
 
 Tensor = torch.Tensor
 
@@ -135,53 +136,39 @@ def _rays_tmax(t_max, n: int, device) -> Tensor:
 
 def trace_packets_plain(tables: TraceTables, orig: Tensor, d: Tensor,
                         t_max: Tensor | float, any_hit: bool = False,
-                        common_origin: bool = False) -> tuple[Tensor, Tensor]:
+                        common_origin: bool = False, stats: dict | None = None
+                        ) -> tuple[Tensor, Tensor]:
     """K1's function in plain PyTorch: intersect.trace on the packed tables.
-    common_origin: orig may be (1, 3), shared by every ray."""
+    common_origin: orig may be (1, 3), shared by every ray. stats: counts
+    the box and triangle tests (intersect.trace_arrays)."""
     n = d.shape[0]
     t_max = _rays_tmax(t_max, n, d.device)
     return intersect.trace_arrays(
         tables.aabb[0:3].T, tables.aabb[3:6].T, tables.meta[0],
         tables.meta[1], tables.skip, _constants(tables),
-        orig.expand(n, 3), d, t_max, any_hit)
+        orig.expand(n, 3), d, t_max, any_hit, stats)
 
 
 def trace_multi_plain(tables: TraceTables, orig: Tensor,
                       dirs: Sequence[Tensor], t_maxs: Sequence[Tensor],
-                      any_hits: Sequence[bool]) -> list[tuple[Tensor, Tensor]]:
+                      any_hits: Sequence[bool], stats: dict | None = None
+                      ) -> list[tuple[Tensor, Tensor]]:
     """K2's function in plain PyTorch: one single-class trace per class."""
-    return [trace_packets_plain(tables, orig, d, tm, ah)
+    return [trace_packets_plain(tables, orig, d, tm, ah, stats=stats)
             for d, tm, ah in zip(dirs, t_maxs, any_hits)]
 
 
 # ------------------------------------------------------------ kernel wrappers
 
-def _check(x: Tensor, name: str, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> None:
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_tables(tables: TraceTables, device: torch.device) -> None:
     nn, nt = tables.n_nodes, tables.n_tris
-    _check(tables.meta, "meta", torch.int32, (5, nn), device)
-    _check(tables.aabb, "aabb", torch.float32, (6, nn), device)
-    _check(tables.tverts, "tverts", torch.float32, (12, nt), device)
+    build.check(tables.meta, "meta", torch.int32, (5, nn), device)
+    build.check(tables.aabb, "aabb", torch.float32, (6, nn), device)
+    build.check(tables.tverts, "tverts", torch.float32, (12, nt), device)
 
 
 def _ptr(x: Tensor | None):
     return None if x is None else x.data_ptr()
-
-
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError_t {rc}")
 
 
 def trace_packets(tables: TraceTables, orig: Tensor, d: Tensor,
@@ -197,15 +184,14 @@ def trace_packets(tables: TraceTables, orig: Tensor, d: Tensor,
                                    common_origin)
     if d.device.type != "cuda":
         raise ValueError(f"trace_packets: unsupported device {d.device}")
-    from tpuray_torch.kernels import build
     dev = d.device
     n = d.shape[0]
     t_max = _rays_tmax(t_max, n, dev)
     if common_origin:
         orig = orig[:1]
     _check_tables(tables, dev)
-    _check(orig, "orig", torch.float32, (1 if common_origin else n, 3), dev)
-    _check(d, "d", torch.float32, (n, 3), dev)
+    build.check(orig, "orig", torch.float32, (1 if common_origin else n, 3), dev)
+    build.check(d, "d", torch.float32, (n, 3), dev)
     t_out = torch.empty(n, dtype=torch.float32, device=dev)
     idx_out = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
@@ -217,7 +203,7 @@ def trace_packets(tables: TraceTables, orig: Tensor, d: Tensor,
             orig.data_ptr(), d.data_ptr(), t_max.data_ptr(), t_out.data_ptr(),
             idx_out.data_ptr(), n, int(any_hit), int(common_origin),
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "trace_packets (K1)")
+    build.raise_on(rc, "trace_packets (K1)")
     LAUNCHES["k1"] += 1
     return t_out, idx_out
 
@@ -238,14 +224,13 @@ def trace_multi(tables: TraceTables, orig: Tensor, dirs: Sequence[Tensor],
         return trace_multi_plain(tables, orig, dirs, t_maxs, any_hits)
     if orig.device.type != "cuda":
         raise ValueError(f"trace_multi: unsupported device {orig.device}")
-    from tpuray_torch.kernels import build
     dev = orig.device
     n = orig.shape[0]
     _check_tables(tables, dev)
-    _check(orig, "orig", torch.float32, (n, 3), dev)
+    build.check(orig, "orig", torch.float32, (n, 3), dev)
     t_maxs = [_rays_tmax(tm, n, dev) for tm in t_maxs]
     for c in range(m):
-        _check(dirs[c], f"dirs[{c}]", torch.float32, (n, 3), dev)
+        build.check(dirs[c], f"dirs[{c}]", torch.float32, (n, 3), dev)
     outs = [(torch.empty(n, dtype=torch.float32, device=dev),
              torch.empty(n, dtype=torch.int32, device=dev)) for _ in range(m)]
     if n == 0:
@@ -262,7 +247,7 @@ def trace_multi(tables: TraceTables, orig: Tensor, dirs: Sequence[Tensor],
             *[_ptr(x) for x in [t for t, _ in outs] + pad],
             *[_ptr(x) for x in [i for _, i in outs] + pad],
             n, m, mask, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "trace_multi (K2)")
+    build.raise_on(rc, "trace_multi (K2)")
     LAUNCHES["k2"] += 1
     return outs
 

@@ -1,10 +1,9 @@
 """Frame orchestration (counterpart of tpuray/render/renderer.py).
 
 One frame: camera rays in 32x32 tile order, the path tracer (K1 for the
-primaries, K2 per bounce), progressive accumulation, the G-buffer, and the
-FrameState update. This slice renders with SVGF off (the JAX package's
-"1spp path tracing" view: final == pt_color); the denoiser with K4 and K5
-is ROADMAP.md item 8.
+primaries, K2 per bounce), progressive accumulation, the G-buffer, the SVGF
++ TAA denoiser (K4 for reproject + variance, K5 for the a-trous chain;
+denoise/svgf.py), and the FrameState update.
 """
 from __future__ import annotations
 
@@ -14,6 +13,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tpuray_torch.denoise.reproject import gather_mode
+from tpuray_torch.denoise.svgf import SVGFOutput, svgf_pipeline
 from tpuray_torch.integrator.gather_tables import PackedScene, pack_scene_tables
 from tpuray_torch.integrator.gbuffer import GBuffer, build_gbuffer
 from tpuray_torch.integrator.intersect import norm
@@ -26,23 +27,6 @@ from tpuray_torch.scene.config import DebugView, RenderConfig
 from tpuray_torch.scene.types import Camera
 
 Tensor = torch.Tensor
-
-
-class SVGFOutput(NamedTuple):
-    """The SVGF debug views; with SVGF off each is the path-traced color."""
-
-    reprojected: Tensor
-    reprojected_var: Tensor
-    variance_illum: Tensor
-    variance_var: Tensor
-    atrous: Tensor
-    atrous_var: Tensor
-    history_tap: Tensor
-    history_tap_var: Tensor
-    modulated: Tensor
-    taa: Tensor
-    moments: Tensor
-    history_len: Tensor
 
 
 class FrameOutputs(NamedTuple):
@@ -85,19 +69,21 @@ def render_frame(scene, camera: Camera, state: FrameState, cfg: RenderConfig,
                  height: int, width: int,
                  tracer: ktrace.Tracer = ktrace.KERNELS,
                  tables: ktrace.TraceTables | None = None,
-                 pk: PackedScene | None = None
+                 pk: PackedScene | None = None,
+                 static_camera: bool = False
                  ) -> tuple[FrameState, FrameOutputs]:
-    """Render one frame and advance the temporal state."""
-    if cfg.enable_svgf:
-        raise NotImplementedError(
-            "enable_svgf=True: the SVGF denoiser (K4, K5) is ROADMAP.md "
-            "item 8 (slice 2); set enable_svgf=False")
+    """Render one frame and advance the temporal state.
+
+    static_camera=True takes the denoiser's static-camera specialisation
+    (motion == 0); the Renderer selects it when the view is unchanged."""
     frame = state.frame_idx
     orig, d, px, py = camera_rays(camera, height, width)
     pt = trace_paths(scene, orig, d, px, py, frame, cfg, common_origin=True,
                      tracer=tracer, tables=tables, pk=pk)
 
     color = untile(pt.color, height, width)
+    emission = untile(pt.emission, height, width)
+    albedo = untile(pt.albedo, height, width)
     if cfg.accumulate:
         t = float(np.float32(1.0) / (np.float32(frame) + np.float32(1.0)))
         accum = state.accum_color + (color - state.accum_color) * t
@@ -111,20 +97,32 @@ def render_frame(scene, camera: Camera, state: FrameState, cfg: RenderConfig,
         valid=untile(pt.first_hit_valid, height, width),
         view_proj=camera.view_proj, prev_view_proj=state.prev_view_proj)
 
-    z1 = torch.zeros((height, width), dtype=torch.float32, device=color.device)
-    svgf = SVGFOutput(
-        reprojected=pt_color, reprojected_var=z1, variance_illum=pt_color,
-        variance_var=z1, atrous=pt_color, atrous_var=z1,
-        history_tap=pt_color, history_tap_var=z1, modulated=pt_color,
-        taa=pt_color,
-        moments=torch.zeros((height, width, 2), dtype=torch.float32,
-                            device=color.device),
-        history_len=z1)
-    final = pt_color
-    new_state = state.replace(
-        prev_normal=gbuf.normal, prev_linear_z=gbuf.linear_z,
-        accum_color=accum, taa_color=final, frame_idx=frame + 1,
-        prev_view_proj=camera.view_proj)
+    if cfg.enable_svgf:
+        svgf = svgf_pipeline(pt_color, emission, albedo, gbuf, state, cfg,
+                             static_camera=static_camera)
+        final = svgf.taa if cfg.enable_taa else svgf.modulated
+        new_state = state.replace(
+            illum_hist=svgf.history_tap, variance_hist=svgf.history_tap_var,
+            prev_normal=gbuf.normal, prev_linear_z=gbuf.linear_z,
+            moments=svgf.moments, history_len=svgf.history_len,
+            accum_color=accum, taa_color=svgf.taa, frame_idx=frame + 1,
+            prev_view_proj=camera.view_proj)
+    else:
+        z1 = torch.zeros((height, width), dtype=torch.float32,
+                         device=color.device)
+        svgf = SVGFOutput(
+            reprojected=pt_color, reprojected_var=z1, variance_illum=pt_color,
+            variance_var=z1, atrous=pt_color, atrous_var=z1,
+            history_tap=pt_color, history_tap_var=z1, modulated=pt_color,
+            taa=pt_color,
+            moments=torch.zeros((height, width, 2), dtype=torch.float32,
+                                device=color.device),
+            history_len=z1)
+        final = pt_color
+        new_state = state.replace(
+            prev_normal=gbuf.normal, prev_linear_z=gbuf.linear_z,
+            accum_color=accum, taa_color=final, frame_idx=frame + 1,
+            prev_view_proj=camera.view_proj)
     outputs = FrameOutputs(
         pt_color=pt_color, accum_color=accum, svgf=svgf, gbuffer=gbuf,
         final=final,
@@ -148,17 +146,25 @@ def select_debug_view(outputs: FrameOutputs, view: DebugView) -> Tensor:
 
 class Renderer:
     """Owns the scene (on `device`), its packed tables, the config and the
-    temporal state, and drives frames."""
+    temporal state, and drives frames.
 
-    def __init__(self, scene, cfg: RenderConfig, device=None,
+    device defaults to "cuda"; without a CUDA device the Renderer raises
+    unless it is given device="cpu". Cameras may be built anywhere: step()
+    moves them to the Renderer's device, and chooses the static-camera
+    branch from a host copy of the view matrix (a camera built on the host,
+    as OrbitCamera.snapshot() does by default, costs no device read)."""
+
+    def __init__(self, scene, cfg: RenderConfig, device="cuda",
                  tracer: ktrace.Tracer = ktrace.KERNELS):
-        if cfg.enable_svgf:
-            raise NotImplementedError(
-                "enable_svgf=True: the SVGF denoiser (K4, K5) is ROADMAP.md "
-                "item 8 (slice 2); set enable_svgf=False")
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Renderer: no CUDA device is available; pass device='cpu' "
+                "to render on the CPU")
         check_config(cfg)
-        if device is not None:
-            scene = scene.to(device)
+        if cfg.enable_svgf:
+            gather_mode(cfg)
+        scene = scene.to(device)
         if cfg.enable_aniso == "auto":
             cfg = dataclasses.replace(cfg, enable_aniso=resolve_aniso(scene, cfg))
         self.scene = scene
@@ -168,16 +174,21 @@ class Renderer:
         self.tables = ktrace.pack_scene(scene.bvh, scene.triangles)
         self.pk = pack_scene_tables(scene)
         self.state = FrameState.initial(cfg.height, cfg.width, self.device)
+        self._prev_view_proj = np.eye(4, dtype=np.float32)  # host copy
         self.last_outputs: FrameOutputs | None = None
 
     def reset(self) -> None:
         self.state = self.state.reset_accumulation()
 
     def step(self, camera: Camera) -> FrameOutputs:
+        view_proj = camera.view_proj.detach().cpu().numpy()
+        static = bool(self.state.frame_idx > 0
+                      and np.allclose(view_proj, self._prev_view_proj))
         self.state, out = render_frame(
             self.scene, camera.to(self.device), self.state, self.cfg,
             self.cfg.height, self.cfg.width, tracer=self.tracer,
-            tables=self.tables, pk=self.pk)
+            tables=self.tables, pk=self.pk, static_camera=static)
+        self._prev_view_proj = view_proj
         self.last_outputs = out
         return out
 

@@ -71,24 +71,18 @@ class RenderConfig:
     enable_svgf: bool = True
     enable_taa: bool = True
 
-    # use the fused Pallas a-trous stencil kernel when running on TPU
-    # (tpuray/kernels/atrous_pallas.py); the jnp path is the CPU/oracle
-    # implementation. Ignored off-TPU.
+    # denoise through the hand-written kernels: K4 (reproject + variance,
+    # kernels/reproject.py) and K5 (the a-trous chain, kernels/atrous.py);
+    # their wrappers run the plain versions on CPU tensors. False takes the
+    # plain PyTorch stages on any device (the JAX package's jnp path).
     pallas_denoise: bool = True
 
-    # moving-camera history-read strategy (denoise/reproject.py):
-    #  "auto"  -> "tiled" on TPU, "exact" on CPU
-    #  "tiled" -> tile-windowed fetch (denoise/tile_gather.py): ~90x faster
-    #             than the gather path on v5e; bilinear taps exact wherever
-    #             the integer motion varies <= span per tile (always, for
-    #             camera motion), rescue taps conservatively invalidated
-    #             across motion discontinuities
-    #  "exact" -> per-pixel gathers, reference tap-exact semantics (oracle)
+    # moving-camera history-read strategy (denoise/reproject.py): "auto"
+    # and "exact" are the per-pixel exact read on every device. The JAX
+    # package's TPU-only reads, "tiled" (the tile-windowed fetch) and
+    # fast_reproject=True (static shifts of one quad gather), are not
+    # ported and raise NotImplementedError.
     reproject_gather: str = "auto"
-
-    # legacy TPU throughput mode (pre-"tiled"): derive the 3x3 rescue taps
-    # from static shifts of the one bilinear quad gather. Superseded by
-    # reproject_gather="tiled", kept for comparison; forces mode "fast".
     fast_reproject: bool = False
 
     # TPU throughput mode: draw the secondary-ray randoms (envmap sample,
