@@ -12,7 +12,7 @@ Builds the CUDA kernels from csrc/ with nvcc (one process per source), then:
      of a moving 800x800 Renderer, against its plain version;
   4. K5 (atrous_chain, 5 iterations) on K4's output, against its plain
      version;
-  5. the main path: Renderer under the slice config (SVGF and TAA on, the
+  5. slice 2's path: Renderer under the slice config (SVGF and TAA on, the
      default view), 2 warm-up frames, then 16 moving-camera frames with the
      launch counts set to 0 just before and read just after; checks the
      image and that every kernel ran; then 2 frames with the camera still
@@ -21,10 +21,27 @@ Builds the CUDA kernels from csrc/ with nvcc (one process per source), then:
   6. slice 1's path (SVGF off): 8 moving frames and one frame against the
      plain-version frame;
   7. the SVGF chain (K4, K5 x 5, modulate, TAA) on one 1920x1080 frame's
-     inputs, the median of 10.
+     inputs, the median of 10;
+  8. K6 (trace_chunked) on the 131k-triangle forest (make_large_scene(25
+     spheres, subdiv 4): 128,002 triangles in 16 chunks): the 640,000
+     primaries of an 800x800 frame and that frame's bounce-0 classes (env
+     shadow, point shadow, bounce ray), against its plain version;
+  9. K6 on the 524k-triangle forest (subdiv 5: 512,002 triangles in 64
+     chunks): the primaries and the bounce-0 bounce rays;
+ 10. slice 3's main path: the 131k forest under the slice config, 2 warm-up
+     frames then 16 moving frames (launches: K6 6 a frame, K4 1, K5 5, K1,
+     K2 and K3 none), then 2 frames at 256x256 through the kernels against
+     the plain versions;
+ 11. K3 (trace_batched) on one frame's bounce-0 env-shadow and continuation
+     rays of the separate-walk (fused_secondary=False) and MIS integrators
+     on the test scene, against its plain version;
+ 12. 8 moving MIS frames and 8 moving separate-walk frames at 800x800
+     (launches: K1 1 and K3 5 a frame each), and 2 frames of each through
+     the kernels against the plain versions.
 Any failed check raises (non-zero exit). The last lines are the kernels'
-JSON line (launches, errors, times and bounds), the card's name and power
-limit, then {"ok": true, "device": {...}}.
+JSON line (launches: the sum over every path run above, each run counted
+from 0 just before it; errors, times and bounds from phases 1-4, 8 and 11),
+the card's name and power limit, then {"ok": true, "device": {...}}.
 Needs no network and no jax. Exits non-zero without a CUDA device.
 """
 import dataclasses
@@ -38,24 +55,31 @@ from typing import NamedTuple
 import torch
 
 from tpuray_torch.denoise.svgf import svgf_pipeline
+from tpuray_torch.integrator import path_tracer as pt
 from tpuray_torch.integrator.intersect import INF
 from tpuray_torch.integrator.path_tracer import trace_paths
 from tpuray_torch.kernels import atrous as ka
 from tpuray_torch.kernels import build
 from tpuray_torch.kernels import reproject as kr
 from tpuray_torch.kernels import trace as kt
+from tpuray_torch.kernels import trace_chunked as ktc
 from tpuray_torch.render.renderer import Renderer, camera_rays
 from tpuray_torch.scene.camera import OrbitCamera
 from tpuray_torch.scene.config import RenderConfig
-from tpuray_torch.scene.procedural import make_test_scene
+from tpuray_torch.scene.procedural import make_large_scene, make_test_scene
 
 H = W = 800
 # slice 2: the default view (SVGF + TAA on) without compaction (item 10)
 SLICE = RenderConfig(width=W, height=H, compact_frac=0.0, compact_auto=False)
 SLICE_PLAIN = dataclasses.replace(SLICE, pallas_denoise=False)
 SLICE1 = dataclasses.replace(SLICE, enable_svgf=False)  # slice 1: SVGF off
+SEPARATE = dataclasses.replace(SLICE, fused_secondary=False)  # slice 3, path 2
+MIS = dataclasses.replace(SLICE, integrator="mis")  # slice 3, path 3
 TIMED_FRAMES = 16
 SLICE1_FRAMES = 8
+SLICE3_FRAMES = 8  # MIS and separate-walk frames
+FOREST_CHECK_SIZE = 256  # forest frames against the plain versions
+LARGE_CAM = dict(radius=4.0)  # sees the sphere field (tests/test_partition.py)
 KERNEL_REPS = 20
 MAX_MISMATCH = 1e-4  # idx / hit-miss / validity may differ on <= 0.01%
 RTOL, ATOL = 1e-5, 1e-6  # K4 and K5 against their plain versions
@@ -119,12 +143,13 @@ def nbytes(*tensors) -> int:
 
 def reset_launches() -> None:
     kt.reset_launches()
+    ktc.reset_launches()
     kr.reset_launches()
     ka.reset_launches()
 
 
 def launches() -> dict:
-    return {**kt.LAUNCHES, **kr.LAUNCHES, **ka.LAUNCHES}
+    return {**kt.LAUNCHES, **ktc.LAUNCHES, **kr.LAUNCHES, **ka.LAUNCHES}
 
 
 def check_closest(name, t, i, t_p, i_p):
@@ -218,11 +243,11 @@ class RecordK4:
         kr.reproject_variance_fused = self.real
 
 
-def moving_renderer(scene, cfg, frames: int, tracer=kt.KERNELS):
+def moving_renderer(scene, cfg, frames: int, tracer=pt.KERNELS, **cam_kw):
     """A Renderer stepped through `frames` moving frames; records the last
     frame's K4 inputs and the state it started from."""
     r = Renderer(scene, cfg, tracer=tracer)
-    cam = OrbitCamera(width=cfg.width, height=cfg.height)
+    cam = OrbitCamera(width=cfg.width, height=cfg.height, **cam_kw)
     for _ in range(frames - 1):
         r.step(cam.snapshot())
         cam.rotate(0.5, 0.0)
@@ -230,6 +255,93 @@ def moving_renderer(scene, cfg, frames: int, tracer=kt.KERNELS):
     with RecordK4() as rec:
         out = r.step(cam.snapshot())
     return r, cam, out, state, rec.inputs
+
+
+def _clone(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_clone(v) for v in x)
+    return x
+
+
+def recorded_calls(scene, cfg, tables, rays) -> list:
+    """Every traversal call one frame of trace_paths makes, in order, as
+    (tracer entry, cloned positional args, keyword args), each passed on to
+    the kernels."""
+    calls = []
+
+    def recording(name):
+        fn = getattr(pt.KERNELS, name)
+
+        def call(*a, **k):
+            calls.append((name, _clone(a), dict(k)))
+            return fn(*a, **k)
+        return call
+
+    tracer = pt.Tracer(**{f.name: recording(f.name)
+                          for f in dataclasses.fields(pt.Tracer)})
+    orig, d, px, py = rays
+    trace_paths(scene, orig, d, px, py, 0, cfg, common_origin=True,
+                tracer=tracer, tables=tables)
+    return calls
+
+
+def trace_bound(tables, stats, *tensors):
+    """K1/K3/K6's bound: the tables and the rays' bytes once, and the box
+    and triangle tests these rays needed (the plain walk's count)."""
+    return bound(nbytes(tables.meta, tables.aabb, tables.tverts, *tensors),
+                 stats["box_tests"] * BOX_OPS + stats["tri_tests"] * TRI_OPS)
+
+
+def check_class(name, kernel, plain, tables, args, any_hit, reps=KERNEL_REPS):
+    """One ray class through a traversal kernel and its plain version:
+    parity, the kernel's time, the plain version's time, work and bound.
+    args: (orig, d, t_max) and the kernel's remaining positional args."""
+    t_k, i_k = kernel(tables, *args)
+    (t_p, i_p), plain_ms = once_ms(lambda: plain(tables, *args))
+    err = 0.0
+    if any_hit:
+        check_any(name, i_k, i_p)
+    else:
+        err = check_closest(name, t_k, i_k, t_p, i_p)
+    ms = kernel_ms(lambda: kernel(tables, *args), reps)
+    work = {}
+    plain(tables, *args, stats=work)
+    n = args[1].shape[0]
+    tm = kt._rays_tmax(args[2], n, args[1].device)
+    live = int((tm > 0).sum())
+    b = trace_bound(tables, work, args[0], args[1], tm, t_k, i_k)
+    log(f"{name}: kernel {ms:.4f} ms ({n / ms / 1e3:.1f} Mrays/s, {live} live "
+        f"of {n}), plain {plain_ms:.1f} ms; work {work}; bound {b[0]:.4f} ms "
+        f"by {b[1]}")
+    return err, ms, plain_ms, b
+
+
+def timed_frames(r, cam, frames: int) -> tuple[list, dict, object]:
+    """`frames` moving synchronised frames with the launch counts set to 0
+    just before and read just after -> (ms per frame, launches, last out)."""
+    torch.cuda.synchronize()
+    reset_launches()
+    ms, out = [], None
+    for _ in range(frames):
+        cam.rotate(0.5, 0.0)
+        t0 = time.perf_counter()
+        out = r.step(cam.snapshot())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, launches(), out
+
+
+def add_launches(total: dict, run: dict) -> None:
+    for k, n in run.items():
+        total[k] += n
+
+
+def expect_launches(name, got: dict, want: dict) -> None:
+    bad = {k: (got[k], n) for k, n in want.items() if got[k] != n}
+    if bad:
+        raise AssertionError(f"{name}: launches (got, want) {bad}")
 
 
 def main() -> None:
@@ -278,18 +390,11 @@ def main() -> None:
         f"bound {k1_bound[0]:.4f} ms by {k1_bound[1]}")
 
     # ---- 2. K2: bounce-0 classes of the same frame, captured from the tracer
-    captured = []
-
-    def recording_multi(tabs, o, dirs, tms, ah):
-        if not captured:
-            captured.append((o.clone(), [x.clone() for x in dirs],
-                             [x.clone() for x in tms], tuple(ah)))
-        return kt.trace_multi(tabs, o, dirs, tms, ah)
-
-    trace_paths(scene, orig, d, px, py, 0, SLICE, common_origin=True,
-                tracer=kt.Tracer(packets=kt.trace_packets, multi=recording_multi),
-                tables=tables)
-    o2, dirs, tms, ah = captured[0]
+    calls = recorded_calls(scene, SLICE, tables, (orig, d, px, py))
+    if [c[0] for c in calls] != ["packets", "multi", "multi"]:
+        raise AssertionError(f"slice-2 frame traversal calls {[c[0] for c in calls]}")
+    _, o2, dirs, tms, ah = calls[1][1]
+    ah = tuple(ah)
     if ah != (False, True, True):
         raise AssertionError(f"bounce 0 classes {ah}, expected 3")
     got = kt.trace_multi(tables, o2, dirs, tms, ah)
@@ -369,14 +474,13 @@ def main() -> None:
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         hist_max.append(float(out.svgf.history_len.max()))
     main_launches = launches()
+    path_launches = dict(main_launches)
     log(f"SVGF frames: {TIMED_FRAMES} at {W}x{H}, median {statistics.median(frame_ms):.3f} ms, "
         f"max {max(frame_ms):.3f} ms, min {min(frame_ms):.3f} ms, "
         f"coverage {float(out.coverage):.4f}, launches {main_launches}")
     want = dict(k1=TIMED_FRAMES, k2=2 * TIMED_FRAMES, k4=TIMED_FRAMES,
                 k5=SLICE.num_atrous_iterations * TIMED_FRAMES)
-    short = {k: (main_launches[k], n) for k, n in want.items() if main_launches[k] < n}
-    if short:
-        raise AssertionError(f"the main path launched a kernel too few times: {short}")
+    expect_launches("SVGF frames", main_launches, dict(want, k3=0, k6=0))
     check_image(out, svgf_on=True)
     if not hist_max[-1] > hist_max[0] > 1.0:
         raise AssertionError(f"history_len does not grow: {hist_max}")
@@ -395,7 +499,7 @@ def main() -> None:
     # 3 frames through the kernels against the same 3 through the plain versions
     out_k = moving_renderer(scene, SLICE, 3)[2]
     (_, _, out_p, _, _), plain_frames_ms = once_ms(
-        lambda: moving_renderer(scene, SLICE_PLAIN, 3, tracer=kt.PLAIN))
+        lambda: moving_renderer(scene, SLICE_PLAIN, 3, tracer=pt.PLAIN))
     log(f"plain-version frames: 3 in {plain_frames_ms:.1f} ms (set-up included)")
     assert_images_close("SVGF frame 3 final, kernels vs plain", out_k.final, out_p.final)
 
@@ -415,15 +519,16 @@ def main() -> None:
         torch.cuda.synchronize()
         frame1_ms.append((time.perf_counter() - t0) * 1e3)
     s1 = launches()
+    add_launches(path_launches, s1)
     log(f"SVGF-off frames: {SLICE1_FRAMES} at {W}x{H}, median "
         f"{statistics.median(frame1_ms):.3f} ms, max {max(frame1_ms):.3f} ms, "
         f"min {min(frame1_ms):.3f} ms, launches {s1}")
-    if s1["k1"] < SLICE1_FRAMES or s1["k2"] < 2 * SLICE1_FRAMES or s1["k4"] or s1["k5"]:
-        raise AssertionError(f"SVGF-off launches {s1}")
+    expect_launches("SVGF-off frames", s1, dict(k1=SLICE1_FRAMES, k2=2 * SLICE1_FRAMES,
+                                                k3=0, k4=0, k5=0, k6=0))
     check_image(out, svgf_on=False)
     cam = OrbitCamera(width=W, height=H, yaw_deg=15.0)
     out_k = Renderer(scene, SLICE1).step(cam.snapshot())
-    out_p = Renderer(scene, SLICE1, tracer=kt.PLAIN).step(cam.snapshot())
+    out_p = Renderer(scene, SLICE1, tracer=pt.PLAIN).step(cam.snapshot())
     assert_images_close("SVGF-off frame, kernels vs plain", out_k.pt_color, out_p.pt_color)
 
     # ---- 7. the SVGF chain at 1920x1080 on one frame's inputs
@@ -442,9 +547,124 @@ def main() -> None:
     log(f"svgf_chain_ms_moving_1080p: median {statistics.median(chain_ms):.3f} ms "
         f"of {len(chain_ms)} (min {min(chain_ms):.3f}, max {max(chain_ms):.3f})")
 
+    # ---- 8. K6 on the 131k forest: primaries and bounce-0 classes
+    t0 = time.perf_counter()
+    large = make_large_scene(n_spheres=25, subdiv=4, env_width=512, device=dev)
+    host_s = time.perf_counter() - t0
+    forest = pt.pack_traversal(large)
+    torch.cuda.synchronize()
+    log(f"scene 131k: {large.triangles.count} triangle rows "
+        f"({large.bvh.chunk_tris} a chunk), {forest.n_chunks} chunks of "
+        f"{forest.chunk_nodes} node rows, host build {host_s:.2f} s, pack + "
+        f"upload {time.perf_counter() - t0 - host_s:.2f} s, tables "
+        f"{nbytes(forest.meta, forest.aabb, forest.tverts) / 1e6:.2f} MB")
+    cam_l = OrbitCamera(width=W, height=H, **LARGE_CAM).snapshot(dev)
+    rays_l = camera_rays(cam_l, H, W)
+    calls = recorded_calls(large, SLICE, forest, rays_l)
+    if [c[0] for c in calls] != ["chunked"] * 6:
+        raise AssertionError(f"forest frame traversal calls {[c[0] for c in calls]}")
+    k6_err, k6_ms, k6_plain_ms, k6_bound = check_class(
+        "K6 131k primaries", ktc.trace_chunked, ktc.trace_chunked_plain, forest,
+        (rays_l[0][:1], rays_l[1], INF, False, True), any_hit=False)
+    for (_, args, _), what in zip(calls[1:4], ("env shadow", "point shadow",
+                                               "bounce ray")):
+        err, *_ = check_class(f"K6 131k bounce-0 {what}", ktc.trace_chunked,
+                              ktc.trace_chunked_plain, forest, args[1:],
+                              any_hit=args[4])
+        k6_err = max(k6_err, err)
+
+    # ---- 9. K6 on the 524k forest: primaries and the bounce-0 bounce rays
+    t0 = time.perf_counter()
+    huge = make_large_scene(n_spheres=25, subdiv=5, env_width=512, device=dev)
+    host_s = time.perf_counter() - t0
+    forest_h = pt.pack_traversal(huge)
+    torch.cuda.synchronize()
+    log(f"scene 524k: {huge.triangles.count} triangle rows, {forest_h.n_chunks} "
+        f"chunks of {forest_h.chunk_nodes} node rows, host build {host_s:.2f} s, "
+        f"pack + upload {time.perf_counter() - t0 - host_s:.2f} s, tables "
+        f"{nbytes(forest_h.meta, forest_h.aabb, forest_h.tverts) / 1e6:.2f} MB")
+    check_class("K6 524k primaries", ktc.trace_chunked, ktc.trace_chunked_plain,
+                forest_h, (rays_l[0][:1], rays_l[1], INF, False, True),
+                any_hit=False)
+    calls_h = recorded_calls(huge, SLICE, forest_h, rays_l)
+    check_class("K6 524k bounce-0 bounce ray", ktc.trace_chunked,
+                ktc.trace_chunked_plain, forest_h, calls_h[3][1][1:], any_hit=False)
+    del huge, forest_h, calls_h
+
+    # ---- 10. slice 3's main path: moving SVGF frames on the 131k forest
+    r = Renderer(large, SLICE)
+    cam = OrbitCamera(width=W, height=H, **LARGE_CAM)
+    for _ in range(2):
+        r.step(cam.snapshot())
+        cam.rotate(0.5, 0.0)
+    yaw0 = cam.yaw_deg
+    forest_ms, run, out = timed_frames(r, cam, TIMED_FRAMES)
+    add_launches(path_launches, run)
+    log(f"131k forest SVGF frames: {TIMED_FRAMES} at {W}x{H} (OrbitCamera radius "
+        f"{LARGE_CAM['radius']}, pitch {cam.pitch_deg}, yaw {yaw0 + 0.5:.1f} to "
+        f"{cam.yaw_deg:.1f}), median "
+        f"{statistics.median(forest_ms):.3f} ms, max {max(forest_ms):.3f} ms, min "
+        f"{min(forest_ms):.3f} ms, coverage {float(out.coverage):.4f}, launches {run}")
+    expect_launches("131k forest frames", run, dict(
+        k1=0, k2=0, k3=0, k6=6 * TIMED_FRAMES, k4=TIMED_FRAMES,
+        k5=SLICE.num_atrous_iterations * TIMED_FRAMES))
+    check_image(out, svgf_on=True)
+    cfg_s = dataclasses.replace(SLICE, width=FOREST_CHECK_SIZE, height=FOREST_CHECK_SIZE)
+    out_k = moving_renderer(large, cfg_s, 2, **LARGE_CAM)[2]
+    (_, _, out_p, _, _), plain_frames_ms = once_ms(lambda: moving_renderer(
+        large, dataclasses.replace(cfg_s, pallas_denoise=False), 2, tracer=pt.PLAIN,
+        **LARGE_CAM))
+    log(f"131k plain-version frames: 2 at {FOREST_CHECK_SIZE}x{FOREST_CHECK_SIZE} in "
+        f"{plain_frames_ms:.1f} ms (set-up included)")
+    assert_images_close("131k frame 2 final, kernels vs plain", out_k.final, out_p.final)
+    check_image(out_k, svgf_on=True)
+    del r, large, forest, calls
+
+    # ---- 11. K3: bounce-0 env-shadow and continuation rays of paths 2 and 3
+    rays = (orig, d, px, py)
+    sep_calls = recorded_calls(scene, SEPARATE, tables, rays)
+    mis_calls = recorded_calls(scene, MIS, tables, rays)
+    for name, c in (("separate-walk", sep_calls), ("MIS", mis_calls)):
+        if [x[0] for x in c] != ["packets"] + ["batched"] * 5:
+            raise AssertionError(f"{name} frame traversal calls {[x[0] for x in c]}")
+    k3_err, k3_ms, k3_plain_ms, k3_bound = check_class(
+        "K3 separate-walk bounce-0 bounce ray", kt.trace_batched,
+        kt.trace_packets_plain, tables, sep_calls[3][1][1:], any_hit=False)
+    for (_, args, _), what in ((sep_calls[1], "separate-walk bounce-0 env shadow"),
+                               (mis_calls[1], "MIS bounce-0 light shadow"),
+                               (mis_calls[2], "MIS bounce-0 BSDF continuation")):
+        err, *_ = check_class(f"K3 {what}", kt.trace_batched, kt.trace_packets_plain,
+                              tables, args[1:], any_hit=args[4])
+        k3_err = max(k3_err, err)
+    del sep_calls, mis_calls
+
+    # ---- 12. MIS and separate-walk frames at 800x800
+    for name, cfg in (("MIS", MIS), ("separate-walk", SEPARATE)):
+        r = Renderer(scene, cfg)
+        cam = OrbitCamera(width=W, height=H)
+        for _ in range(2):
+            r.step(cam.snapshot())
+            cam.rotate(0.5, 0.0)
+        ms, run, out = timed_frames(r, cam, SLICE3_FRAMES)
+        add_launches(path_launches, run)
+        log(f"{name} SVGF frames: {SLICE3_FRAMES} at {W}x{H}, median "
+            f"{statistics.median(ms):.3f} ms, max {max(ms):.3f} ms, min "
+            f"{min(ms):.3f} ms, coverage {float(out.coverage):.4f}, launches {run}")
+        expect_launches(f"{name} frames", run, dict(
+            k1=SLICE3_FRAMES, k2=0, k3=5 * SLICE3_FRAMES, k6=0, k4=SLICE3_FRAMES,
+            k5=cfg.num_atrous_iterations * SLICE3_FRAMES))
+        check_image(out, svgf_on=True)
+        out_k = moving_renderer(scene, cfg, 2)[2]
+        (_, _, out_p, _, _), plain_frames_ms = once_ms(lambda: moving_renderer(
+            scene, dataclasses.replace(cfg, pallas_denoise=False), 2, tracer=pt.PLAIN))
+        log(f"{name} plain-version frames: 2 in {plain_frames_ms:.1f} ms (set-up included)")
+        assert_images_close(f"{name} frame 2 final, kernels vs plain", out_k.final,
+                            out_p.final)
+        del r
+
     def entry(name, source, replaces, key, err, ms, plain_ms, b):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=main_launches[key], max_abs_err=err, ms=ms,
+                    launches=path_launches[key], max_abs_err=err, ms=ms,
                     plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None)
 
     kernels = [
@@ -454,12 +674,18 @@ def main() -> None:
         entry("K2 trace_multi", "tpuray_torch/csrc/trace.cu",
               "tpuray/kernels/trace_pallas.py:416", "k2", k2_err, k2_ms, k2_plain_ms,
               k2_bound),
+        entry("K3 trace_batched", "tpuray_torch/csrc/trace.cu",
+              "tpuray/kernels/trace_pallas.py:67", "k3", k3_err, k3_ms, k3_plain_ms,
+              k3_bound),
         entry("K4 reproject_variance_fused", "tpuray_torch/csrc/reproject.cu",
               "tpuray/kernels/reproject_pallas.py:94", "k4", k4_err, k4_ms,
               k4_plain_ms, k4_bound),
         entry("K5 atrous_chain", "tpuray_torch/csrc/atrous.cu",
               "tpuray/kernels/atrous_pallas.py:99", "k5", k5_err, k5_ms, k5_plain_ms,
               k5_bound),
+        entry("K6 trace_chunked", "tpuray_torch/csrc/trace_chunked.cu",
+              "tpuray/kernels/trace_chunked.py:66", "k6", k6_err, k6_ms, k6_plain_ms,
+              k6_bound),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -20,6 +20,13 @@ on (slice 2, the default view).
   image within atol 2e-3.
 - a fresh interpreter with jax blocked imports tpuray_torch and renders
   with SVGF on.
+- slice 3 (SVGF + TAA on, 2 moving frames at 32x32, the image tolerance
+  above): a chunked forest (make_large_scene at the size of
+  tests/test_partition.py, every walk through K6's plain version) and the
+  separate-walk NEE integrator (fused_secondary=False: K1 for the
+  primaries, K3 for every other walk); and which traversal entry each
+  frame calls, and how often (the launch counts chip_smoke.py checks on the
+  card). The MIS integrator is tests/test_torch_mis.py.
 """
 import os
 import subprocess
@@ -34,10 +41,15 @@ import tpuray
 from tpuray.integrator import path_tracer as jpt
 from tpuray.scene.camera import OrbitCamera as JOrbitCamera
 from tpuray.scene.config import RenderConfig as JRenderConfig
-from tpuray.scene.procedural import make_test_scene
+import tpuray.scene.partition as jpart
+from tpuray.accel.bvh import build_bvh
+from tpuray.scene.procedural import make_large_scene, make_test_scene
 
 import tpuray_torch
 from tpuray_torch.integrator import path_tracer
+from tpuray_torch.render.frame_state import FrameState
+from tpuray_torch.render.renderer import render_frame
+from tpuray_torch.scene.procedural import make_large_scene_arrays
 from tpuray_torch.scene.camera import OrbitCamera
 from tpuray_torch.scene.config import RenderConfig
 from tpuray_torch.scene.types import scene_from_numpy, scene_to_numpy
@@ -170,8 +182,6 @@ def test_renderer_needs_cuda_unless_asked_for_cpu(scenes, monkeypatch):
     ("fast_reproject", True, "TPU-only"),
     ("compact_frac", 0.5, "item 10"),
     ("compact_auto", True, "item 10"),
-    ("integrator", "mis", "item 11"),
-    ("fused_secondary", False, "item 11"),
     ("use_normal_map", True, "item 9"),
 ])
 def test_unported_config_raises(scenes, field, value, item):
@@ -209,3 +219,78 @@ print("ok", float(out.coverage))
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+LARGE = dict(n_spheres=6, subdiv=2, max_chunk_tris=512, env_width=32)
+H3 = W3 = 32
+
+
+@pytest.fixture(scope="module")
+def large_scenes():
+    """make_large_scene in both packages (the JAX one with the numpy BVH
+    builder forced, which the port copies)."""
+    orig = jpart.build_bvh
+    jpart.build_bvh = lambda tv, leaf=8, force_py=False: build_bvh(
+        tv, leaf, force_py=True)
+    try:
+        js = make_large_scene(**LARGE)
+    finally:
+        jpart.build_bvh = orig
+    return js, scene_from_numpy(make_large_scene_arrays(**LARGE))
+
+
+@pytest.mark.parametrize("case", ["forest", "separate_walk"])
+def test_renderer_slice3_frames_match(scenes, large_scenes, case):
+    js, ts = large_scenes if case == "forest" else scenes
+    extra = {} if case == "forest" else {"fused_secondary": False}
+    kw = dict(width=W3, height=H3, **SVGF_SLICE, **extra)
+    jr = tpuray.Renderer(js, JRenderConfig(**kw))
+    tr = tpuray_torch.Renderer(ts, RenderConfig(**kw), device="cpu")
+    assert bool(tr.tables.chunk_nodes) == (case == "forest")
+    jcam = JOrbitCamera(width=W3, height=H3, radius=4.0)
+    tcam = OrbitCamera(width=W3, height=H3, radius=4.0)
+    for frame in range(2):
+        jo, to = jr.step(jcam.snapshot()), tr.step(tcam.snapshot())
+        msg = f"{case} frame {frame}"
+        assert_images_close(to.pt_color.numpy(), jo.pt_color, msg=msg + " pt")
+        assert_images_close(to.final.numpy(), jo.final, msg=msg + " final")
+        jz = np.asarray(jo.gbuffer.linear_z)
+        tz = to.gbuffer.linear_z.numpy()
+        np.testing.assert_array_equal(tz != 1.0, jz != 1.0, err_msg=msg)
+        np.testing.assert_allclose(tz, jz, rtol=1e-5, err_msg=msg)
+        assert float(to.coverage) == float(jo.coverage)
+        assert 0.2 < float(to.coverage) < 1.0
+        jcam.rotate(0.5, 0.0)
+        tcam.rotate(0.5, 0.0)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("forest", dict(packets=0, batched=0, multi=0, chunked=6)),
+    ("separate_walk", dict(packets=1, batched=5, multi=0, chunked=0)),
+    ("mis", dict(packets=1, batched=5, multi=0, chunked=0)),
+    ("fused", dict(packets=1, batched=0, multi=2, chunked=0)),
+])
+def test_frame_trace_routes(scenes, large_scenes, case, want):
+    """Which traversal entry a depth-2 frame calls and how often: on the
+    card each call is one launch of K1 (packets), K3 (batched), K2 (multi)
+    or K6 (chunked)."""
+    ts = large_scenes[1] if case == "forest" else scenes[1]
+    extra = {"separate_walk": {"fused_secondary": False},
+             "mis": {"integrator": "mis"}}.get(case, {})
+    cfg = RenderConfig(width=16, height=16, **SVGF_SLICE, **extra)
+    calls = dict.fromkeys(want, 0)
+
+    def counting(name):
+        fn = getattr(path_tracer.PLAIN, name)
+
+        def call(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return call
+
+    tracer = path_tracer.Tracer(**{name: counting(name) for name in want})
+    cam = OrbitCamera(width=16, height=16, radius=4.0).snapshot()
+    _, out = render_frame(ts, cam, FrameState.initial(16, 16), cfg, 16, 16,
+                          tracer=tracer, tables=path_tracer.pack_traversal(ts))
+    assert calls == want
+    assert bool(torch.isfinite(out.final).all())

@@ -1,4 +1,7 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card:
+K1 (shared-origin primaries), K2 (fused bounce classes), K3 (per-ray
+origins), K4 and K5 (the denoiser), K6 (a chunked forest), and frames of
+every path through them.
 
 Every test here is marked `gpu` and skips without a CUDA device. This file
 imports no jax (the card's machine has none), so it runs there without
@@ -17,13 +20,15 @@ import numpy as np
 import pytest
 import torch
 
+from tpuray_torch.integrator.path_tracer import PLAIN, pack_traversal
 from tpuray_torch.kernels import atrous as ka
 from tpuray_torch.kernels import reproject as kr
 from tpuray_torch.kernels import trace as kt
+from tpuray_torch.kernels import trace_chunked as ktc
 from tpuray_torch.render.renderer import Renderer
 from tpuray_torch.scene.camera import OrbitCamera
 from tpuray_torch.scene.config import RenderConfig
-from tpuray_torch.scene.procedural import make_test_scene
+from tpuray_torch.scene.procedural import make_large_scene, make_test_scene
 
 pytestmark = pytest.mark.gpu
 
@@ -34,6 +39,15 @@ def cuda_scene():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     scene = make_test_scene(subdiv=4, env_width=64, device="cuda")
     return scene, kt.pack_scene(scene.bvh, scene.triangles)
+
+
+@pytest.fixture(scope="module")
+def cuda_forest():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    scene = make_large_scene(n_spheres=8, subdiv=3, max_chunk_tris=2048,
+                             env_width=64, device="cuda")
+    return scene, pack_traversal(scene)
 
 
 def _rays(seed, n, common_origin=False):
@@ -61,17 +75,23 @@ def _assert_closest(t, i, t_p, i_p):
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
-@pytest.mark.parametrize("common_origin", [False, True])
-def test_k1_matches_plain(cuda_scene, any_hit, common_origin):
+@pytest.mark.parametrize("kernel", ["k1", "k3"])
+def test_k1_matches_plain(cuda_scene, any_hit, kernel):
+    """K1 (a shared origin) and K3 (per-ray origins, some inside boxes)."""
     _, tables = cuda_scene
     n = 65_536
+    common_origin = kernel == "k1"
     o, d = _rays(10, n, common_origin)
     dead = np.arange(n) % 5 == 0
     tm = np.where(dead, 0.0, 1e30 if not any_hit else 1.8).astype(np.float32)
     og, dg, tmg = _cuda(o[:1] if common_origin else o, d, tm)
     kt.reset_launches()
-    t, i = kt.trace_packets(tables, og, dg, tmg, any_hit, common_origin)
-    assert kt.LAUNCHES["k1"] == 1
+    if common_origin:
+        t, i = kt.trace_packets(tables, og, dg, tmg, any_hit, True)
+    else:
+        t, i = kt.trace_batched(tables, og, dg, tmg, any_hit)
+    assert kt.LAUNCHES == {"k1": int(common_origin), "k2": 0,
+                           "k3": int(not common_origin)}
     t_p, i_p = kt.trace_packets_plain(tables, og, dg, tmg, any_hit,
                                       common_origin)
     torch.cuda.synchronize()
@@ -113,15 +133,57 @@ def test_k2_matches_plain(cuda_scene, ah):
             _assert_closest(got[c][0], got[c][1], ref[c][0], ref[c][1])
 
 
-def test_wrappers_check_their_inputs(cuda_scene):
+def test_wrappers_check_their_inputs(cuda_scene, cuda_forest):
     _, tables = cuda_scene
+    _, forest = cuda_forest
     d = torch.zeros((8, 3), device="cuda")
     with pytest.raises(TypeError, match="dtype"):
-        kt.trace_packets(tables, d.double(), d.double(), 1e30)
+        kt.trace_packets(tables, d.double(), d.double(), 1e30,
+                         common_origin=True)
     with pytest.raises(ValueError, match="contiguous"):
-        kt.trace_packets(tables, d, torch.zeros((3, 8), device="cuda").T, 1e30)
+        kt.trace_batched(tables, d, torch.zeros((3, 8), device="cuda").T, 1e30)
     with pytest.raises(ValueError, match="shape"):
         kt.trace_multi(tables, d, [d[:4]], [1e30], [False])
+    with pytest.raises(ValueError, match="trace_batched"):
+        kt.trace_packets(tables, d, d, 1e30)  # per-ray origins are K3's
+    with pytest.raises(ValueError, match="forest"):
+        kt.trace_batched(forest, d, d, 1e30)
+    with pytest.raises(ValueError, match="forest"):
+        ktc.trace_chunked(tables, d, d, 1e30)
+    with pytest.raises(ValueError, match="shape"):
+        ktc.trace_chunked(forest, d[:4], d, 1e30)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("common_origin", [False, True])
+def test_k6_matches_plain(cuda_forest, any_hit, common_origin):
+    _, tables = cuda_forest
+    n = 65_536 + 77
+    rng = np.random.default_rng(14)
+    o = np.tile(np.asarray([[0.4, 0.6, 3.5]], np.float32), (n, 1))
+    if not common_origin:
+        o = ((rng.random((n, 3)) - 0.5) * np.asarray([4.0, 1.5, 4.0])).astype(np.float32)
+        o[: n // 8, 1] = -0.45  # just above the ground, among the spheres
+    tgt = ((rng.random((n, 3)) - 0.5) * np.asarray([3.0, 1.2, 3.0])).astype(np.float32)
+    d = tgt - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    dead = np.arange(n) % 5 == 0
+    # the camera-like origin sits ~3 from the field; the others among it
+    shadow_tmax = 4.5 if common_origin else 1.5
+    tm = np.where(dead, 0.0, 1e30 if not any_hit else shadow_tmax).astype(np.float32)
+    og, dg, tmg = _cuda(o[:1] if common_origin else o, d, tm)
+    ktc.reset_launches()
+    t, i = ktc.trace_chunked(tables, og, dg, tmg, any_hit, common_origin)
+    assert ktc.LAUNCHES["k6"] == 1
+    t_p, i_p = ktc.trace_chunked_plain(tables, og, dg, tmg, any_hit,
+                                       common_origin)
+    torch.cuda.synchronize()
+    if any_hit:
+        assert torch.equal(i >= 0, i_p >= 0)
+    else:
+        _assert_closest(t, i, t_p, i_p)
+    assert bool((i[torch.from_numpy(dead).cuda()] == -1).all())
+    assert 0.1 < float((i_p >= 0).float().mean()) < 0.95
 
 
 def test_frame_kernels_match_plain(cuda_scene):
@@ -132,7 +194,7 @@ def test_frame_kernels_match_plain(cuda_scene):
     kt.reset_launches()
     out_k = Renderer(scene, cfg).step(cam.snapshot("cuda"))
     assert kt.LAUNCHES["k1"] == 1 and kt.LAUNCHES["k2"] == cfg.max_tracing_depth
-    out_p = Renderer(scene, cfg, tracer=kt.PLAIN).step(cam.snapshot("cuda"))
+    out_p = Renderer(scene, cfg, tracer=PLAIN).step(cam.snapshot("cuda"))
     d = (out_k.pt_color - out_p.pt_color).abs().amax(-1)
     assert float((d > 5e-4).float().mean()) <= 0.005
     assert float(d.max()) < 0.1
@@ -212,7 +274,7 @@ def test_svgf_frames_kernels_match_plain(cuda_scene):
     plain_cfg = RenderConfig(width=128, height=96, compact_frac=0.0,
                              compact_auto=False, pallas_denoise=False)
     rk = Renderer(scene, cfg)
-    rp = Renderer(scene, plain_cfg, tracer=kt.PLAIN)
+    rp = Renderer(scene, plain_cfg, tracer=PLAIN)
     cam = OrbitCamera(width=128, height=96, yaw_deg=20.0)
     kt.reset_launches()
     kr.reset_launches()
@@ -227,3 +289,32 @@ def test_svgf_frames_kernels_match_plain(cuda_scene):
     assert float(d.max()) < 0.1
     assert bool(torch.isfinite(out_k.final).all())
     assert not torch.equal(out_k.final, out_k.pt_color)
+
+
+@pytest.mark.parametrize("case", ["forest", "separate_walk", "mis"])
+def test_slice3_frames_match_plain(cuda_scene, cuda_forest, case):
+    """Two moving SVGF frames per path, through the kernels and through the
+    plain versions, with the launches of each path: 6 K6 a frame on a
+    forest, 1 K1 + 5 K3 for the separate walks and for MIS."""
+    scene = cuda_forest[0] if case == "forest" else cuda_scene[0]
+    extra = {"separate_walk": {"fused_secondary": False},
+             "mis": {"integrator": "mis"}}.get(case, {})
+    kw = dict(width=128, height=96, compact_frac=0.0, compact_auto=False, **extra)
+    rk = Renderer(scene, RenderConfig(**kw))
+    rp = Renderer(scene, RenderConfig(pallas_denoise=False, **kw), tracer=PLAIN)
+    cam = OrbitCamera(width=128, height=96, yaw_deg=20.0, radius=4.0)
+    for m in (kt, ktc, kr, ka):
+        m.reset_launches()
+    for _ in range(2):
+        cam.rotate(0.5, 0.0)
+        out_k, out_p = rk.step(cam.snapshot()), rp.step(cam.snapshot())
+    launches = {**kt.LAUNCHES, **ktc.LAUNCHES}
+    want = (dict(k1=0, k2=0, k3=0, k6=12) if case == "forest"
+            else dict(k1=2, k2=0, k3=10, k6=0))
+    assert launches == want
+    assert kr.LAUNCHES["k4"] == 2 and ka.LAUNCHES["k5"] == 10
+    d = (out_k.final - out_p.final).abs().amax(-1)
+    assert float((d > 5e-4).float().mean()) <= 0.005
+    assert float(d.max()) < 0.1
+    assert bool(torch.isfinite(out_k.final).all())
+    assert 0.05 < float(out_k.coverage) < 1.0

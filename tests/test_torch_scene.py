@@ -82,11 +82,14 @@ def test_scene_round_trip_through_numpy(jax_scene):
 
 
 def test_scene_from_numpy_rejects_unported():
+    """Textures still raise; a forest's chunk sizes (0-d arrays) load."""
     arrays = make_test_scene_arrays(subdiv=0, env_width=16)
     with pytest.raises(NotImplementedError, match="item 9"):
         scene_from_numpy(dict(arrays, **{"textures.data": np.zeros((1, 4, 2, 2, 3))}))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        scene_from_numpy(dict(arrays, **{"bvh.chunk_nodes": np.asarray(128)}))
+    forest = scene_from_numpy(dict(arrays, **{"bvh.chunk_nodes": np.asarray(128),
+                                              "bvh.chunk_tris": np.asarray(256)}))
+    assert (forest.bvh.chunk_nodes, forest.bvh.chunk_tris) == (128, 256)
+    assert scene_from_numpy(arrays).bvh.chunk_nodes == 0
 
 
 def test_render_config_fields_and_defaults():

@@ -1,4 +1,5 @@
-"""Traversal kernels K1 (trace_packets) and K2 (trace_multi).
+"""Traversal kernels K1 (trace_packets), K2 (trace_multi) and K3
+(trace_batched).
 
 On the CPU the port's wrappers run their plain PyTorch versions; these are
 held against tpuray.kernels.trace_pallas in Pallas interpret mode, at the
@@ -202,10 +203,38 @@ def test_cpu_path_counts_no_launch_and_rejects_other_devices(scenes):
     o, d = make_rays(9, 64)
     kt.reset_launches()
     kt.trace_packets(tables, *_t(o, d), 1e30)
+    kt.trace_batched(tables, *_t(o, d), 1e30)
     kt.trace_multi(tables, *_t(o), _t(d), [1e30], [False])
-    assert kt.LAUNCHES == {"k1": 0, "k2": 0}
+    assert kt.LAUNCHES == {"k1": 0, "k2": 0, "k3": 0}
     meta_d = torch.empty((64, 3), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         kt.trace_packets(tables, meta_d, meta_d, 1e30)
+    with pytest.raises(ValueError, match="unsupported device"):
+        kt.trace_batched(tables, meta_d, meta_d, 1e30)
     with pytest.raises(ValueError, match="1..3 classes"):
         kt.trace_multi(tables, *_t(o), _t(d, d, d, d), [1e30] * 4, [True] * 4)
+
+
+def test_k3_matches_batched_pallas(interp_trace, scenes):
+    """K3: per-ray origins, some inside the scene's boxes, and dead lanes;
+    closest hit against the TPU kernel _kernel_batched (batch_k > 0), any
+    hit with a finite t_max against tpuray.integrator.intersect.trace."""
+    from tpuray.integrator.intersect import trace as trace_xla
+    js, _, tables = scenes
+    n = 1500
+    o, d = make_rays(12, n)
+    o[: n // 4] = 0.0
+    dead = np.arange(n) % 5 == 0
+    tm = np.where(dead, 0.0, 1e30).astype(np.float32)
+    t_ref, i_ref = interp_trace.trace_pallas(
+        js.bvh, js.triangles, jnp.asarray(o), jnp.asarray(d),
+        t_max=jnp.asarray(tm), batch_k=2)
+    t, i = kt.trace_batched(tables, *_t(o, d, tm))
+    _assert_closest(t, i, t_ref, i_ref)
+    assert (i.numpy()[dead] == -1).all()
+    assert 0.1 < (np.asarray(i_ref) >= 0).mean() < 0.95
+    tm = np.where(dead, 0.0, 1.6).astype(np.float32)
+    _, ia_ref = trace_xla(js.bvh, js.triangles, jnp.asarray(o), jnp.asarray(d),
+                          t_max=jnp.asarray(tm), any_hit=True)
+    _, ia = kt.trace_batched(tables, *_t(o, d, tm), any_hit=True)
+    np.testing.assert_array_equal(ia.numpy() >= 0, np.asarray(ia_ref) >= 0)

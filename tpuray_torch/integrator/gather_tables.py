@@ -85,6 +85,7 @@ class PackedScene:
     mat_table: Tensor    # (M, 18)
     light_table: Tensor  # (L, 6)
     env_image: Tensor    # (H, W, 3)
+    env_cache: Tensor    # (H, W, 3) [inv_cdf_x, inv_cdf_y, pdf] (MIS)
     env_nee_t: Tensor    # (H, W, 8) [L, radiance, pdf, 0]
 
 
@@ -97,5 +98,6 @@ def pack_scene_tables(scene) -> PackedScene:
         mat_table=pack_material_table(scene.materials),
         light_table=pack_lights(scene.lights),
         env_image=scene.envmap.image,
+        env_cache=scene.envmap.cache,
         env_nee_t=pack_env_nee_table(scene.envmap.image, scene.envmap.cache),
     )

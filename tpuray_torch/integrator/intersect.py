@@ -111,7 +111,9 @@ def trace_arrays(aabb_min: Tensor, aabb_max: Tensor, first_tri: Tensor,
 
     stats: if given, adds the box tests and triangle tests these rays
     needed to stats["box_tests"] and stats["tri_tests"] (the work a
-    roofline bound counts)."""
+    roofline bound counts). Box tests of a forest's padding nodes (inverted
+    boxes, scene/partition.py) are not counted: a walk from the chunk
+    roots never reaches them."""
     n_nodes = aabb_min.shape[0]
     n_tris = tc["np0"].shape[0]
     n = orig.shape[0]
@@ -134,6 +136,7 @@ def trace_arrays(aabb_min: Tensor, aabb_max: Tensor, first_tri: Tensor,
     j = torch.zeros(n, dtype=torch.long, device=dev)
     t = torch.full((n,), INF, dtype=torch.float32, device=dev)
     idx = torch.full((n,), -1, dtype=torch.long, device=dev)
+    real_node = (aabb_min[:, 0] <= aabb_max[:, 0]) if stats is not None else None
     n_box = torch.zeros((), dtype=torch.long, device=dev)
     n_tri = torch.zeros((), dtype=torch.long, device=dev)
     step = 0
@@ -155,7 +158,7 @@ def trace_arrays(aabb_min: Tensor, aabb_max: Tensor, first_tri: Tensor,
 
         do_tri = active & is_leaf & box_ok
         if stats is not None:
-            n_box += (active & entering).sum()
+            n_box += (active & entering & real_node[nd]).sum()
             n_tri += do_tri.sum()
         ti = torch.clamp(first + j, 0, n_tris - 1)
         hit, t_tri = ray_triangle_pre(ox, oy, oz, dx, dy, dz,

@@ -1,17 +1,22 @@
 """The path-tracing integrator: 1spp progressive tracing with NEE.
 
-Counterpart of tpuray/integrator/path_tracer.py (the "nee" integrator on
-its fused path): per bounce, resolve the hit from (t, triangle index),
-sample the Disney BSDF (Sobol + Cranley-Patterson + Wang-hash stream, in
-the JAX package's draw order), draw the env-map and point-light NEE
-samples, and trace the bounce ray and both shadow rays in one K2 walk
-(kernels/trace.py:trace_multi). The primaries go through K1
-(trace_packets). Runs under torch.no_grad (differentiation is ROADMAP.md
-item 13).
+Counterpart of tpuray/integrator/path_tracer.py: per bounce, resolve the
+hit from (t, triangle index), sample the Disney BSDF (Sobol +
+Cranley-Patterson + Wang-hash stream, in the JAX package's draw order),
+draw the env-map and point-light NEE samples, and trace the bounce ray and
+both shadow rays. `trace` picks the kernel as the JAX package's does:
+a forest goes to K6 (kernels/trace_chunked.py), shared-origin rays on a
+single tree to K1 and per-ray origins to K3 (kernels/trace.py). On a
+single tree with cfg.fused_secondary each bounce's three walks are one K2
+walk (trace_multi); otherwise, and always on a forest, they are separate
+walks in the JAX package's order: env shadow, point shadow, bounce ray.
+integrator="mis" hands the frame to integrator/mis.py. Runs under
+torch.no_grad (differentiation is ROADMAP.md item 13).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -22,6 +27,7 @@ from tpuray_torch.integrator.gather_tables import (
     PackedScene, fetch_material, fetch_tri, pack_scene_tables)
 from tpuray_torch.integrator.intersect import INF, barycentrics, cross
 from tpuray_torch.kernels import trace as ktrace
+from tpuray_torch.kernels import trace_chunked as ktc
 from tpuray_torch.sampling import envmap as env
 from tpuray_torch.sampling import rng
 from tpuray_torch.scene.config import RenderConfig
@@ -33,21 +39,57 @@ EPS = float(np.float32(1e-6))
 
 def check_config(cfg: RenderConfig) -> None:
     """Raise for the integrator options this port does not have yet."""
-    if cfg.integrator != "nee":
-        raise NotImplementedError(
-            f"integrator={cfg.integrator!r}: the MIS integrator and K3 are "
-            "ROADMAP.md item 11")
+    if cfg.integrator not in ("nee", "mis"):
+        raise ValueError(f"integrator={cfg.integrator!r}: 'nee' or 'mis'")
     if cfg.compact_frac > 0.0 or cfg.compact_auto:
         raise NotImplementedError(
             "bounce compaction (compact_frac > 0 or compact_auto=True) is "
             "ROADMAP.md item 10; set compact_frac=0.0, compact_auto=False")
-    if not cfg.fused_secondary:
-        raise NotImplementedError(
-            "fused_secondary=False (separate walks through K3) is ROADMAP.md "
-            "item 11")
     if cfg.use_normal_map:
         raise NotImplementedError(
             "use_normal_map (textures) is ROADMAP.md item 9")
+
+
+@dataclasses.dataclass(frozen=True)
+class Tracer:
+    """Which traversal the integrator calls: the kernel wrappers (which run
+    the plain versions on CPU tensors) or the plain versions on any device
+    (to compare a frame against on the card)."""
+
+    packets: Callable  # K1: shared origin, single tree
+    batched: Callable  # K3: per-ray origins, single tree
+    multi: Callable    # K2: up to 3 classes from shared per-ray origins
+    chunked: Callable  # K6: a forest
+
+
+KERNELS = Tracer(packets=ktrace.trace_packets, batched=ktrace.trace_batched,
+                 multi=ktrace.trace_multi, chunked=ktc.trace_chunked)
+PLAIN = Tracer(packets=ktrace.trace_packets_plain,
+               batched=ktrace.trace_packets_plain,
+               multi=ktrace.trace_multi_plain,
+               chunked=ktc.trace_chunked_plain)
+
+
+def pack_traversal(scene) -> ktrace.TraceTables:
+    """The scene's traversal tables: a forest's for K6, else a single
+    tree's for K1-K3."""
+    if scene.bvh.chunk_nodes:
+        return ktc.pack_forest(scene.bvh, scene.triangles)
+    return ktrace.pack_scene(scene.bvh, scene.triangles)
+
+
+def trace(tracer: Tracer, tables: ktrace.TraceTables, orig: Tensor,
+          d: Tensor, t_max: Tensor | float = INF, any_hit: bool = False,
+          common_origin: bool = False) -> tuple[Tensor, Tensor]:
+    """(t, idx) of N rays: a forest -> K6, a shared origin -> K1, per-ray
+    origins -> K3 (tpuray/integrator/path_tracer.py:trace, without its
+    fallback to the wavefront: every table goes to its kernel on the card).
+    orig (N, 3), every row the same point when common_origin."""
+    if tables.chunk_nodes:
+        return tracer.chunked(tables, orig, d, t_max, any_hit, common_origin)
+    if common_origin:
+        return tracer.packets(tables, orig, d, t_max, any_hit, True)
+    return tracer.batched(tables, orig, d, t_max, any_hit)
 
 
 def resolve_aniso(scene, cfg: RenderConfig) -> bool:
@@ -113,6 +155,17 @@ def _env_nee_contrib(hit: Hit, v: Tensor, l: Tensor, radiance: Tensor,
     return contrib, p
 
 
+def _env_nee(pk: PackedScene, tables: ktrace.TraceTables, tracer: Tracer,
+             hit: Hit, v: Tensor, r1: Tensor, r2: Tensor, active: Tensor,
+             pre: disney.ViewPre) -> tuple[Tensor, Tensor]:
+    """Env-map NEE with its own shadow walk (the separate-walk path). Dead
+    lanes get t_max = 0; every consumer re-masks their outputs."""
+    l, radiance, p = _env_nee_sample(pk, r1, r2)
+    _, sidx = trace(tracer, tables, hit.point, l.contiguous(),
+                    torch.where(active, INF, 0.0), any_hit=True)
+    return _env_nee_contrib(hit, v, l, radiance, p, sidx >= 0, pre)
+
+
 def _point_nee_sample(pk: PackedScene, hit: Hit, u: Tensor
                       ) -> tuple[Tensor, Tensor, Tensor]:
     """Point-light pick + direction -> (direction, distance, radiance)."""
@@ -141,6 +194,29 @@ def _point_nee_contrib(n_lights: int, hit: Hit, v: Tensor, ldir: Tensor,
     return contrib, pdf
 
 
+def _point_nee(pk: PackedScene, tables: ktrace.TraceTables, tracer: Tracer,
+               hit: Hit, v: Tensor, u: Tensor, active: Tensor,
+               pre: disney.ViewPre) -> tuple[Tensor, Tensor]:
+    """Point-light NEE with its own shadow walk (the separate-walk path);
+    no walk without lights."""
+    n_lights = pk.light_table.shape[0]
+    if n_lights == 0:
+        return (torch.zeros_like(hit.point),
+                torch.zeros(hit.point.shape[:-1], dtype=torch.float32,
+                            device=hit.point.device))
+    ldir, dist, lrad = _point_nee_sample(pk, hit, u)
+    _, sidx = trace(tracer, tables, hit.point, ldir,
+                    torch.where(active, dist, 0.0), any_hit=True)
+    return _point_nee_contrib(n_lights, hit, v, ldir, dist, lrad, sidx >= 0,
+                              pre)
+
+
+def _use_fused_secondary(tables: ktrace.TraceTables, cfg: RenderConfig) -> bool:
+    """One K2 walk per bounce: a single tree with cfg.fused_secondary. A
+    forest always takes the separate walks (as in the JAX package)."""
+    return cfg.fused_secondary and not tables.chunk_nodes
+
+
 class PTOutput(NamedTuple):
     color: Tensor            # (N, 3) per-ray radiance (1 spp)
     emission: Tensor         # (N, 3) first-hit emissive
@@ -164,7 +240,7 @@ class _ShadeOut(NamedTuple):
 
 
 def _shade_loop(pk: PackedScene, tables: ktrace.TraceTables,
-                tracer: ktrace.Tracer, cfg: RenderConfig, orig: Tensor,
+                tracer: Tracer, cfg: RenderConfig, orig: Tensor,
                 d: Tensor, px: Tensor, py: Tensor, frame: int,
                 first_t: Tensor, first_idx: Tensor, coherent: bool,
                 aniso: bool) -> _ShadeOut:
@@ -200,6 +276,7 @@ def _shade_loop(pk: PackedScene, tables: ktrace.TraceTables,
     emission0, albedo0, point0, normal0 = z3(), z3(), z3(), z3()
     valid0 = torch.zeros(n, dtype=torch.bool, device=dev)
     n_lights = pk.light_table.shape[0]
+    fused = _use_fused_secondary(tables, cfg)
 
     t, idx = first_t, first_idx
     for bounce in range(cfg.max_tracing_depth):
@@ -246,34 +323,41 @@ def _shade_loop(pk: PackedScene, tables: ktrace.TraceTables,
             er2, seed = rng.rand(seed)
             lu, seed = rng.rand(seed)
 
-        # ONE walk (K2) for this bounce's classes, all from hit.point: the
-        # bounce ray (closest hit, not on the last bounce), the env shadow
-        # and the point shadow (any hit). Dead lanes get t_max = 0.
-        l_env, env_rad, env_p = _env_nee_sample(pk, er1, er2)
-        act_inf = torch.where(alive, INF, 0.0)
-        dirs, tms, ah = [l_env.contiguous()], [act_inf], [True]
-        if n_lights:
-            ldir, ldist, lrad = _point_nee_sample(pk, hit, lu)
-            dirs.append(ldir)
-            tms.append(torch.where(alive, ldist, 0.0))
-            ah.append(True)
-        if not last:
-            dirs.insert(0, l_new)
-            tms.insert(0, act_inf)
-            ah.insert(0, False)
-        res = tracer.multi(tables, hit.point, dirs, tms, ah)
-        ci = 0
-        if not last:
-            t_next, idx_next = res[0]
-            ci = 1
-        env_c, env_pdf_v = _env_nee_contrib(
-            hit, v, l_env, env_rad, env_p, res[ci][1] >= 0, pre)
-        if n_lights:
-            pt_c, pt_pdf_v = _point_nee_contrib(
-                n_lights, hit, v, ldir, ldist, lrad, res[ci + 1][1] >= 0, pre)
+        if fused:
+            # ONE walk (K2) for this bounce's classes, all from hit.point: the
+            # bounce ray (closest hit, not on the last bounce), the env shadow
+            # and the point shadow (any hit). Dead lanes get t_max = 0.
+            l_env, env_rad, env_p = _env_nee_sample(pk, er1, er2)
+            act_inf = torch.where(alive, INF, 0.0)
+            dirs, tms, ah = [l_env.contiguous()], [act_inf], [True]
+            if n_lights:
+                ldir, ldist, lrad = _point_nee_sample(pk, hit, lu)
+                dirs.append(ldir)
+                tms.append(torch.where(alive, ldist, 0.0))
+                ah.append(True)
+            if not last:
+                dirs.insert(0, l_new)
+                tms.insert(0, act_inf)
+                ah.insert(0, False)
+            res = tracer.multi(tables, hit.point, dirs, tms, ah)
+            ci = 0
+            if not last:
+                t_next, idx_next = res[0]
+                ci = 1
+            env_c, env_pdf_v = _env_nee_contrib(
+                hit, v, l_env, env_rad, env_p, res[ci][1] >= 0, pre)
+            if n_lights:
+                pt_c, pt_pdf_v = _point_nee_contrib(
+                    n_lights, hit, v, ldir, ldist, lrad, res[ci + 1][1] >= 0,
+                    pre)
+            else:
+                pt_c = z3()
+                pt_pdf_v = torch.zeros(n, dtype=torch.float32, device=dev)
         else:
-            pt_c = z3()
-            pt_pdf_v = torch.zeros(n, dtype=torch.float32, device=dev)
+            env_c, env_pdf_v = _env_nee(pk, tables, tracer, hit, v, er1, er2,
+                                        alive, pre)
+            pt_c, pt_pdf_v = _point_nee(pk, tables, tracer, hit, v, lu, alive,
+                                        pre)
 
         cos_term = torch.abs(ndotl)[..., None]
         brdf_c = (hit.mat.emissive * f_r * cos_term
@@ -292,7 +376,12 @@ def _shade_loop(pk: PackedScene, tables: ktrace.TraceTables,
         orig = hit.point
         d = torch.where(alive[..., None], l_new, d)
         if not last:
-            t, idx = t_next, idx_next
+            if fused:
+                t, idx = t_next, idx_next
+            else:
+                # terminated paths stop paying for traversal: t_max = 0
+                t, idx = trace(tracer, tables, orig, d,
+                               torch.where(alive, INF, 0.0))
 
     return _ShadeOut(light=light, miss_any=miss_any, miss_dir=miss_dir,
                      miss_reduction=miss_reduction, emission0=emission0,
@@ -303,7 +392,7 @@ def _shade_loop(pk: PackedScene, tables: ktrace.TraceTables,
 @torch.no_grad()
 def trace_paths(scene, orig: Tensor, d: Tensor, px: Tensor, py: Tensor,
                 frame: int, cfg: RenderConfig, common_origin: bool = False,
-                tracer: ktrace.Tracer = ktrace.KERNELS,
+                tracer: Tracer = KERNELS,
                 tables: ktrace.TraceTables | None = None,
                 pk: PackedScene | None = None) -> PTOutput:
     """One sample per ray, up to cfg.max_tracing_depth bounces.
@@ -311,16 +400,21 @@ def trace_paths(scene, orig: Tensor, d: Tensor, px: Tensor, py: Tensor,
     orig/d: (N, 3) (orig may be (1, 3) or an expanded view when
     common_origin: every ray shares one origin); px/py: (N,) integer global
     pixel coords (the RNG keys); frame: int. tables/pk: the scene's packed
-    traversal and shading tables, built here when not given."""
+    traversal (pack_traversal) and shading tables, built here when not
+    given."""
     check_config(cfg)
     n = d.shape[0]
     orig = orig.expand(n, 3)
     pk = pack_scene_tables(scene) if pk is None else pk
-    tables = ktrace.pack_scene(scene.bvh, scene.triangles) if tables is None else tables
+    tables = pack_traversal(scene) if tables is None else tables
     aniso = resolve_aniso(scene, cfg)
+    if cfg.integrator == "mis":
+        from tpuray_torch.integrator.mis import trace_paths_mis
+        return trace_paths_mis(pk, tables, tracer, orig, d, px, py,
+                               int(frame), cfg, common_origin, aniso)
 
-    t0, idx0 = tracer.packets(tables, orig, d, INF, any_hit=False,
-                              common_origin=common_origin)
+    t0, idx0 = trace(tracer, tables, orig, d, INF,
+                     common_origin=common_origin)
     out = _shade_loop(pk, tables, tracer, cfg, orig, d, px, py, int(frame),
                       t0, idx0, cfg.tile_coherent_sampling, aniso)
 

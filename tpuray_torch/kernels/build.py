@@ -20,7 +20,9 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = tuple(_PKG / "csrc" / f for f in ("trace.cu", "reproject.cu", "atrous.cu"))
+SOURCES = tuple(_PKG / "csrc" / f for f in ("trace.cu", "trace_chunked.cu",
+                                             "reproject.cu", "atrous.cu"))
+HEADERS = (_PKG / "csrc" / "trace_common.cuh",)
 BUILD_ROOT = _PKG.parent / "build" / "tpuray_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -30,6 +32,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "tpuray_trace_packets": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                             _I, _I, _P],
+    "tpuray_trace_batched": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                             _I, _I, _P],
+    "tpuray_trace_chunked": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                              _I, _I, _I, _P],
     "tpuray_trace_multi": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -56,7 +62,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / "libtpuray_kernels.so"
 

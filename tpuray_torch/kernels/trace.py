@@ -1,4 +1,5 @@
-"""BVH traversal kernels K1 (trace_packets) and K2 (trace_multi).
+"""BVH traversal kernels K1 (trace_packets), K2 (trace_multi) and K3
+(trace_batched) on a single tree.
 
 Counterpart of tpuray/kernels/trace_pallas.py. The CUDA kernels live in
 csrc/trace.cu (see its header for the design); each wrapper here
@@ -9,13 +10,18 @@ csrc/trace.cu (see its header for the design); each wrapper here
   the outputs, launches the kernel on the current stream, raises if the
   launch failed, and adds one to LAUNCHES. There is no fallback.
 
+K1 takes rays with a shared origin (camera primaries), K3 rays with their
+own origins (the separate-walk secondaries, the MIS integrator). Chunked
+forests go to K6 (kernels/trace_chunked.py), which packs its tables with
+pack_tables below.
+
 Traversal returns topology only, (t, triangle index) with (INF, -1) on a
 miss; shading re-derives everything else (integrator/path_tracer.py).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Sequence
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -29,7 +35,7 @@ MAX_STACK = 128  # per-thread DFS stack in the kernels; checked at pack time
 MAX_LEAF = 8     # builder leaf size; checked at pack time
 
 # kernel launches since the last reset (the plain path never counts)
-LAUNCHES = {"k1": 0, "k2": 0}
+LAUNCHES = {"k1": 0, "k2": 0, "k3": 0}
 
 
 def reset_launches() -> None:
@@ -39,13 +45,16 @@ def reset_launches() -> None:
 
 @dataclasses.dataclass(frozen=True)
 class TraceTables:
-    """The kernels' scene operands (pack_scene), plus the skip links that
-    only the plain wavefront reads."""
+    """The kernels' scene operands (pack_scene, or trace_chunked.pack_forest
+    for a forest), plus the skip links that only the plain wavefront reads.
+    Indices are global: first_tri and right point into the whole tables."""
 
     meta: Tensor    # (5, n_nodes) int32 [first_tri; tri_count; right; axis; left_low]
     aabb: Tensor    # (6, n_nodes) f32 [amin xyz; amax xyz]
     tverts: Tensor  # (12, T) f32 [n xyz; n.p0; T1 xyz; t1w; T2 xyz; t2w]
     skip: Tensor    # (n_nodes,) int32
+    chunk_nodes: int = 0  # > 0: a uniform forest of chunks this many nodes long
+    chunk_tris: int = 0
 
     @property
     def n_nodes(self) -> int:
@@ -54,6 +63,10 @@ class TraceTables:
     @property
     def n_tris(self) -> int:
         return self.tverts.shape[1]
+
+    @property
+    def n_chunks(self) -> int:
+        return self.n_nodes // self.chunk_nodes if self.chunk_nodes else 0
 
 
 def _check_tree(skip: np.ndarray, count: np.ndarray) -> None:
@@ -90,16 +103,13 @@ def _check_tree(skip: np.ndarray, count: np.ndarray) -> None:
             f"BVH depth {depth.max()} overflows the kernels' stack {MAX_STACK}")
 
 
-def pack_scene(bvh, tri) -> TraceTables:
-    """Pack the SoA scene into the kernels' operand layout, on its device.
+def pack_tables(bvh, tri) -> TraceTables:
+    """The SoA scene in the kernels' operand layout, on its device, with no
+    checks (pack_scene and trace_chunked.pack_forest check their trees).
 
     right_child of inner node i = skip[i + 1]; split_axis / left_is_low
     drive near-first child order."""
-    if bvh.chunk_nodes:
-        raise NotImplementedError(
-            "chunked BVH forests (K6) are not ported yet (ROADMAP.md item 12)")
     skip, count = bvh.skip.long(), bvh.tri_count.long()
-    _check_tree(skip.cpu().numpy(), count.cpu().numpy())
     n_nodes = skip.shape[0]
     left = torch.arange(n_nodes, device=skip.device) + 1
     clip_l = torch.clamp_max(left, n_nodes - 1)
@@ -121,6 +131,15 @@ def pack_scene(bvh, tri) -> TraceTables:
                        skip=bvh.skip.to(torch.int32).contiguous())
 
 
+def pack_scene(bvh, tri) -> TraceTables:
+    """Check a single tree (_check_tree) and pack it (pack_tables)."""
+    if bvh.chunk_nodes:
+        raise ValueError("pack_scene takes a single tree; pack a chunked "
+                         "forest with kernels/trace_chunked.py:pack_forest")
+    _check_tree(bvh.skip.cpu().numpy(), bvh.tri_count.cpu().numpy())
+    return pack_tables(bvh, tri)
+
+
 def _constants(tables: TraceTables) -> dict[str, Tensor]:
     tv = tables.tverts
     return dict(n=tv[0:3].T, np0=tv[3], t1=tv[4:7].T, t1w=tv[7],
@@ -138,9 +157,10 @@ def trace_packets_plain(tables: TraceTables, orig: Tensor, d: Tensor,
                         t_max: Tensor | float, any_hit: bool = False,
                         common_origin: bool = False, stats: dict | None = None
                         ) -> tuple[Tensor, Tensor]:
-    """K1's function in plain PyTorch: intersect.trace on the packed tables.
-    common_origin: orig may be (1, 3), shared by every ray. stats: counts
-    the box and triangle tests (intersect.trace_arrays)."""
+    """K1's and K3's function in plain PyTorch (and K6's, on forest
+    tables): intersect.trace on the packed tables, for shared or per-ray
+    origins. common_origin: orig may be (1, 3), shared by every ray. stats:
+    counts the box and triangle tests (intersect.trace_arrays)."""
     n = d.shape[0]
     t_max = _rays_tmax(t_max, n, d.device)
     return intersect.trace_arrays(
@@ -160,7 +180,11 @@ def trace_multi_plain(tables: TraceTables, orig: Tensor,
 
 # ------------------------------------------------------------ kernel wrappers
 
-def _check_tables(tables: TraceTables, device: torch.device) -> None:
+def _check_tables(tables: TraceTables, device: torch.device,
+                  forest: bool = False) -> None:
+    if bool(tables.chunk_nodes) != forest:
+        raise ValueError("K6 takes forest tables (trace_chunked.pack_forest), "
+                         "K1-K3 single-tree tables (pack_scene)")
     nn, nt = tables.n_nodes, tables.n_tris
     build.check(tables.meta, "meta", torch.int32, (5, nn), device)
     build.check(tables.aabb, "aabb", torch.float32, (6, nn), device)
@@ -171,41 +195,66 @@ def _ptr(x: Tensor | None):
     return None if x is None else x.data_ptr()
 
 
-def trace_packets(tables: TraceTables, orig: Tensor, d: Tensor,
-                  t_max: Tensor | float, any_hit: bool = False,
-                  common_origin: bool = False) -> tuple[Tensor, Tensor]:
-    """K1: closest-hit (or any-hit) trace of N rays.
-
-    orig (N, 3), or (1, 3) with common_origin (every ray shares it);
-    d (N, 3) f32; t_max (N,) f32 or a scalar, <= 0 marks a dead lane.
-    Returns (t (N,) f32, idx (N,) int32), (INF, -1) on a miss."""
-    if d.device.type == "cpu":
-        return trace_packets_plain(tables, orig, d, t_max, any_hit,
-                                   common_origin)
-    if d.device.type != "cuda":
-        raise ValueError(f"trace_packets: unsupported device {d.device}")
+def _launch_single(entry: str, key: str, tables: TraceTables, orig: Tensor,
+                   d: Tensor, t_max: Tensor | float, any_hit: bool
+                   ) -> tuple[Tensor, Tensor]:
+    """Check, allocate and launch K1 (orig (1, 3)) or K3 (orig (N, 3))."""
     dev = d.device
     n = d.shape[0]
     t_max = _rays_tmax(t_max, n, dev)
-    if common_origin:
-        orig = orig[:1]
     _check_tables(tables, dev)
-    build.check(orig, "orig", torch.float32, (1 if common_origin else n, 3), dev)
+    build.check(orig, "orig", torch.float32, (1 if key == "k1" else n, 3), dev)
     build.check(d, "d", torch.float32, (n, 3), dev)
     t_out = torch.empty(n, dtype=torch.float32, device=dev)
     idx_out = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return t_out, idx_out
     with torch.cuda.device(dev):
-        rc = build.load().tpuray_trace_packets(
+        rc = getattr(build.load(), entry)(
             tables.meta.data_ptr(), tables.aabb.data_ptr(),
             tables.tverts.data_ptr(), tables.n_nodes, tables.n_tris,
             orig.data_ptr(), d.data_ptr(), t_max.data_ptr(), t_out.data_ptr(),
-            idx_out.data_ptr(), n, int(any_hit), int(common_origin),
+            idx_out.data_ptr(), n, int(any_hit),
             torch.cuda.current_stream(dev).cuda_stream)
-    build.raise_on(rc, "trace_packets (K1)")
-    LAUNCHES["k1"] += 1
+    build.raise_on(rc, f"{entry} ({key.upper()})")
+    LAUNCHES[key] += 1
     return t_out, idx_out
+
+
+def trace_packets(tables: TraceTables, orig: Tensor, d: Tensor,
+                  t_max: Tensor | float, any_hit: bool = False,
+                  common_origin: bool = False) -> tuple[Tensor, Tensor]:
+    """K1: closest-hit (or any-hit) trace of N rays from one shared origin.
+
+    orig (1, 3) or (N, 3) rows of one point, with common_origin; d (N, 3)
+    f32; t_max (N,) f32 or a scalar, <= 0 marks a dead lane. Returns
+    (t (N,) f32, idx (N,) int32), (INF, -1) on a miss. On the card K1 takes
+    shared origins only (rays with their own origins go to K3,
+    trace_batched); the plain version on the CPU takes either."""
+    if d.device.type == "cpu":
+        return trace_packets_plain(tables, orig, d, t_max, any_hit,
+                                   common_origin)
+    if d.device.type != "cuda":
+        raise ValueError(f"trace_packets: unsupported device {d.device}")
+    if not common_origin:
+        raise ValueError("trace_packets (K1) takes a shared origin "
+                         "(common_origin=True); per-ray origins go to "
+                         "trace_batched (K3)")
+    return _launch_single("tpuray_trace_packets", "k1", tables, orig[:1], d,
+                          t_max, any_hit)
+
+
+def trace_batched(tables: TraceTables, orig: Tensor, d: Tensor,
+                  t_max: Tensor | float, any_hit: bool = False
+                  ) -> tuple[Tensor, Tensor]:
+    """K3: K1's trace for incoherent rays with per-ray origins orig (N, 3)
+    (shadow and bounce rays). Same outputs and dead-lane rule as K1."""
+    if d.device.type == "cpu":
+        return trace_packets_plain(tables, orig, d, t_max, any_hit)
+    if d.device.type != "cuda":
+        raise ValueError(f"trace_batched: unsupported device {d.device}")
+    return _launch_single("tpuray_trace_batched", "k3", tables, orig, d,
+                          t_max, any_hit)
 
 
 def trace_multi(tables: TraceTables, orig: Tensor, dirs: Sequence[Tensor],
@@ -250,17 +299,3 @@ def trace_multi(tables: TraceTables, orig: Tensor, dirs: Sequence[Tensor],
     build.raise_on(rc, "trace_multi (K2)")
     LAUNCHES["k2"] += 1
     return outs
-
-
-@dataclasses.dataclass(frozen=True)
-class Tracer:
-    """Which traversal the integrator calls: the kernel wrappers (which run
-    the plain version on CPU tensors) or the plain versions on any device
-    (to compare a frame against on the card)."""
-
-    packets: Callable
-    multi: Callable
-
-
-KERNELS = Tracer(packets=trace_packets, multi=trace_multi)
-PLAIN = Tracer(packets=trace_packets_plain, multi=trace_multi_plain)

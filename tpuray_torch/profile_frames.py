@@ -2,13 +2,16 @@
 
     python -m tpuray_torch.profile_frames [--frames 8] [--size 800] [--out DIR]
 
-Renders the chip_smoke.py scene (20,482 triangles) at size x size, moving
-the camera 0.5 degrees a frame, with SVGF off and then on (the default
-view, compaction off). For each: 3 warm-up frames and `--frames`
-synchronised frames timed on the host clock, both configurations before
-any profiling; then `--frames` frames of each under torch.profiler.
-Prints per frame the wall time, the device kernels, their summed device
-time, the device's busy share (device time over the unprofiled wall time)
+Renders size x size frames, moving the camera 0.5 degrees a frame, for
+each run: the chip_smoke.py test scene (20,482 triangles) with SVGF off,
+with SVGF on (the default view, compaction off) and under the MIS
+integrator (SVGF on); and the 131k-triangle forest
+(make_large_scene(25 spheres, subdiv 4), SVGF on, OrbitCamera radius 4).
+For each: 3 warm-up frames and `--frames` synchronised frames timed on the
+host clock, every run before any profiling; then `--frames` frames of each
+under torch.profiler. Prints per frame the wall time, the device kernels,
+their summed device time, the device's busy share (device time over the
+unprofiled wall time), each hand-written kernel's share of the device time
 and the kernels that take the most device time. What SVGF on adds over
 SVGF off is the denoiser's share. The profiler's tables go to DIR
 (default build/profile, which git ignores). Needs a CUDA device.
@@ -28,10 +31,15 @@ from torch.profiler import ProfilerActivity, profile
 from tpuray_torch.kernels import atrous as ka
 from tpuray_torch.kernels import reproject as kr
 from tpuray_torch.kernels import trace as kt
+from tpuray_torch.kernels import trace_chunked as ktc
 from tpuray_torch.render.renderer import Renderer
 from tpuray_torch.scene.camera import OrbitCamera
 from tpuray_torch.scene.config import RenderConfig
-from tpuray_torch.scene.procedural import make_test_scene
+from tpuray_torch.scene.procedural import make_large_scene, make_test_scene
+
+# device-kernel name prefixes of the hand-written kernels (csrc/*.cu)
+_OURS = {"K1/K3": "trace_k1", "K2": "trace_k2", "K6": "trace_k6",
+         "K4": ("reproject_pass", "variance_pass"), "K5": "atrous_step"}
 
 
 def _kernels(prof) -> list[tuple[str, float]]:
@@ -43,10 +51,10 @@ def _kernels(prof) -> list[tuple[str, float]]:
 class _Run:
     """A Renderer under one config with its moving camera."""
 
-    def __init__(self, scene, cfg: RenderConfig, tag: str):
+    def __init__(self, scene, cfg: RenderConfig, tag: str, **cam_kw):
         self.tag, self.cfg = tag, cfg
         self.r = Renderer(scene, cfg)
-        self.cam = OrbitCamera(width=cfg.width, height=cfg.height)
+        self.cam = OrbitCamera(width=cfg.width, height=cfg.height, **cam_kw)
 
     def step(self):
         self.cam.rotate(0.5, 0.0)
@@ -66,7 +74,7 @@ class _Run:
         return wall
 
     def profile_frames(self, frames: int, wall: list[float], out_dir: Path) -> dict:
-        for m in (kt, kr, ka):
+        for m in (kt, ktc, kr, ka):
             m.reset_launches()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(frames):
@@ -81,13 +89,20 @@ class _Run:
         device_ms = sum(us for _, us in kernels) / 1e3 / frames
         res = dict(wall_ms=wall_ms, kernels_per_frame=len(kernels) / frames,
                    device_ms_per_frame=device_ms, busy_share=device_ms / wall_ms,
-                   launches={**kt.LAUNCHES, **kr.LAUNCHES, **ka.LAUNCHES})
+                   launches={**kt.LAUNCHES, **ktc.LAUNCHES, **kr.LAUNCHES,
+                             **ka.LAUNCHES})
         tag, cfg = self.tag, self.cfg
         print(f"[{tag}] {cfg.width}x{cfg.height}: wall median {wall_ms:.3f} ms "
               f"(min {min(wall):.3f}, max {max(wall):.3f}) over {len(wall)}; "
               f"{res['kernels_per_frame']:.1f} device kernels and "
               f"{device_ms:.3f} device ms per frame; busy share "
               f"{res['busy_share']:.3f}; launches {res['launches']}", flush=True)
+        total_us = sum(us for _, us in kernels)
+        shares = {k: sum(us for name, us in kernels
+                         if any(p in name for p in (v if isinstance(v, tuple) else (v,))))
+                  / total_us for k, v in _OURS.items()}
+        print(f"[{tag}]   share of device time: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in shares.items() if v), flush=True)
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
         for name, (n, us) in top:
             print(f"[{tag}]   {us / 1e3 / frames:8.3f} ms/frame {n / frames:7.1f} "
@@ -107,15 +122,18 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_frames needs a CUDA device")
     print(f"device {torch.cuda.get_device_name(0)}", flush=True)
-    scene = make_test_scene(subdiv=5, env_width=512, device="cuda")
     cfg = RenderConfig(width=args.size, height=args.size, compact_frac=0.0,
                        compact_auto=False)
-    runs = [_Run(scene, dataclasses.replace(cfg, enable_svgf=False), "svgf_off"),
-            _Run(scene, cfg, "svgf_on")]
+    test = make_test_scene(subdiv=5, env_width=512, device="cuda")
+    large = make_large_scene(n_spheres=25, subdiv=4, env_width=512, device="cuda")
+    runs = [_Run(test, dataclasses.replace(cfg, enable_svgf=False), "svgf_off"),
+            _Run(test, cfg, "svgf_on"),
+            _Run(test, dataclasses.replace(cfg, integrator="mis"), "mis"),
+            _Run(large, cfg, "forest_131k", radius=4.0)]
     # all host-clock timing first: the profiler leaves Python objects behind
     walls = [run.time_frames(args.frames) for run in runs]
     off, on = [run.profile_frames(args.frames, wall, args.out)
-               for run, wall in zip(runs, walls)]
+               for run, wall in zip(runs, walls)][:2]
     print(f"the denoiser adds {on['kernels_per_frame'] - off['kernels_per_frame']:.1f} "
           f"device kernels, {on['device_ms_per_frame'] - off['device_ms_per_frame']:.3f} "
           f"device ms and {on['wall_ms'] - off['wall_ms']:.3f} wall ms per frame",

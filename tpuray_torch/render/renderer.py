@@ -1,9 +1,11 @@
 """Frame orchestration (counterpart of tpuray/render/renderer.py).
 
-One frame: camera rays in 32x32 tile order, the path tracer (K1 for the
-primaries, K2 per bounce), progressive accumulation, the G-buffer, the SVGF
-+ TAA denoiser (K4 for reproject + variance, K5 for the a-trous chain;
-denoise/svgf.py), and the FrameState update.
+One frame: camera rays in 32x32 tile order, the path tracer (on a single
+tree K1 for the primaries and K2 per bounce, or K3 for separate walks and
+the MIS integrator; on a chunked forest K6 for every walk), progressive
+accumulation, the G-buffer, the SVGF + TAA denoiser (K4 for reproject +
+variance, K5 for the a-trous chain; denoise/svgf.py), and the FrameState
+update.
 """
 from __future__ import annotations
 
@@ -19,8 +21,8 @@ from tpuray_torch.integrator.gather_tables import PackedScene, pack_scene_tables
 from tpuray_torch.integrator.gbuffer import GBuffer, build_gbuffer
 from tpuray_torch.integrator.intersect import norm
 from tpuray_torch.integrator.path_tracer import (
-    check_config, resolve_aniso, trace_paths)
-from tpuray_torch.kernels import trace as ktrace
+    KERNELS, Tracer, check_config, pack_traversal, resolve_aniso, trace_paths)
+from tpuray_torch.kernels.trace import TraceTables
 from tpuray_torch.render.frame_state import FrameState
 from tpuray_torch.render.tiling import tile_pixel_coords, untile
 from tpuray_torch.scene.config import DebugView, RenderConfig
@@ -67,8 +69,8 @@ def camera_rays(camera: Camera, height: int, width: int
 @torch.no_grad()
 def render_frame(scene, camera: Camera, state: FrameState, cfg: RenderConfig,
                  height: int, width: int,
-                 tracer: ktrace.Tracer = ktrace.KERNELS,
-                 tables: ktrace.TraceTables | None = None,
+                 tracer: Tracer = KERNELS,
+                 tables: TraceTables | None = None,
                  pk: PackedScene | None = None,
                  static_camera: bool = False
                  ) -> tuple[FrameState, FrameOutputs]:
@@ -145,8 +147,8 @@ def select_debug_view(outputs: FrameOutputs, view: DebugView) -> Tensor:
 
 
 class Renderer:
-    """Owns the scene (on `device`), its packed tables, the config and the
-    temporal state, and drives frames.
+    """Owns the scene (on `device`), its packed tables (a forest's for K6 or
+    a single tree's), the config and the temporal state, and drives frames.
 
     device defaults to "cuda"; without a CUDA device the Renderer raises
     unless it is given device="cpu". Cameras may be built anywhere: step()
@@ -155,7 +157,7 @@ class Renderer:
     as OrbitCamera.snapshot() does by default, costs no device read)."""
 
     def __init__(self, scene, cfg: RenderConfig, device="cuda",
-                 tracer: ktrace.Tracer = ktrace.KERNELS):
+                 tracer: Tracer = KERNELS):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -171,7 +173,7 @@ class Renderer:
         self.cfg = cfg
         self.device = scene.triangles.p0.device
         self.tracer = tracer
-        self.tables = ktrace.pack_scene(scene.bvh, scene.triangles)
+        self.tables = pack_traversal(scene)
         self.pk = pack_scene_tables(scene)
         self.state = FrameState.initial(cfg.height, cfg.width, self.device)
         self._prev_view_proj = np.eye(4, dtype=np.float32)  # host copy

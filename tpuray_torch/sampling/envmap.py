@@ -1,9 +1,11 @@
-"""HDR environment light: direction mapping, radiance lookup, solid-angle
-pdf and the one-gather NEE table (counterpart of tpuray/sampling/envmap.py).
+"""HDR environment light: direction mapping, radiance lookup, importance
+sampling from the inverse-CDF cache, solid-angle pdf and the one-gather NEE
+table (counterpart of tpuray/sampling/envmap.py).
 
-The JAX package's quad-packed fetches (env_radiance_packed) are a TPU
-gather layout with the same values as `env_radiance`; the port fetches
-the four texels directly.
+The JAX package's quad-packed fetches (env_radiance_packed,
+sample_env_packed, env_pdf_packed) are a TPU gather layout with the same
+values as `env_radiance`, `sample_env` and `env_pdf`; the port fetches the
+four texels directly.
 """
 from __future__ import annotations
 
@@ -56,11 +58,24 @@ def env_radiance(image: Tensor, d: Tensor) -> Tensor:
     return bilinear_fetch(image, u, v)
 
 
+def sample_env(cache: Tensor, xi1: Tensor, xi2: Tensor) -> Tensor:
+    """Env-map light sample: xi -> world direction (..., 3). Fetches
+    (inv_cdf_x, inv_cdf_y) bilinearly from the cache at (u=xi1, v=xi2):
+    xi2 selects the column marginal, xi1 the row conditional."""
+    xy = bilinear_fetch(cache, xi1, xi2)[..., :2]
+    x = xy[..., 0]
+    y = 1.0 - xy[..., 1]
+    phi = _TWO_PI * (x - 0.5)
+    theta = _PI * (y - 0.5)
+    ct = torch.cos(theta)
+    return torch.stack([ct * torch.cos(phi), torch.sin(theta), ct * torch.sin(phi)],
+                       dim=-1)
+
+
 def env_pdf(cache: Tensor, d: Tensor) -> Tensor:
     """Solid-angle pdf of direction d under the texel-mass sampling scheme:
     pdf_texel * W*H / (2 pi^2 cos(elevation)). (The JAX function's
-    reference_quirks sin() variant has its only caller in the MIS
-    integrator, ROADMAP.md item 11.)"""
+    reference_quirks sin() variant has no caller that sets it.)"""
     u, v = dir_to_uv(d)
     pdf = bilinear_fetch(cache, u, v)[..., 2]
     theta = _PI * (0.5 - v)

@@ -1,7 +1,8 @@
 """Procedural test geometry — scenes with no file dependencies.
 
 Counterpart of tpuray/scene/procedural.py (icosphere, ground_quad,
-make_test_scene), built with the numpy host code of scene/host.py.
+make_test_scene, make_large_scene), built with the numpy host code of
+scene/host.py and scene/partition.py.
 """
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import numpy as np
 
 from tpuray_torch.scene.host import (
     build_bvh_py, env_cache_py, material_table_arrays, procedural_room_envmap)
+from tpuray_torch.scene.partition import apply_perm_padded, build_forest_bvh_uniform
 from tpuray_torch.scene.types import Scene, scene_from_numpy
 
 
@@ -121,3 +123,80 @@ def make_test_scene(subdiv: int = 2, with_lights: bool = True,
     return scene_from_numpy(
         make_test_scene_arrays(subdiv, with_lights, env_width, leaf_size),
         device)
+
+
+def make_large_scene_arrays(n_spheres: int = 25, subdiv: int = 3,
+                            max_chunk_tris: int = 8192, leaf_size: int = 8,
+                            env_width: int = 128, seed: int = 11
+                            ) -> dict[str, np.ndarray]:
+    """n_spheres icospheres of 20*4^subdiv triangles on a ground quad, as a
+    uniform chunked forest (scene/partition.py), in scene_from_numpy's
+    arrays. 25 spheres: subdiv 3 ~= 32k triangles, 4 ~= 128k, 5 ~= 512k."""
+    rs = np.random.RandomState(seed)
+    blobs = []
+    for i in range(n_spheres):
+        r = 0.12 + 0.18 * rs.rand()
+        c = (rs.rand(3) - 0.5) * np.asarray([3.0, 1.2, 3.0])
+        c[1] = max(c[1], -0.5 + r)
+        blobs.append(icosphere(subdiv, radius=r, center=tuple(c)))
+    ground = ground_quad()
+    tris = np.concatenate(blobs + [ground]).astype(np.float32)
+    mat_id = np.concatenate(
+        [np.full(len(b), i % 2, np.int32) for i, b in enumerate(blobs)]
+        + [np.ones(len(ground), np.int32)])
+
+    centers = np.concatenate(
+        [np.tile(b.mean(axis=(0, 1)), (len(b), 1)) for b in blobs]
+        + [np.zeros((len(ground), 3), np.float32)]).astype(np.float32)
+
+    f = build_forest_bvh_uniform(tris, leaf_size, max_chunk_tris)
+    perm = f["perm"]
+    tris_p = apply_perm_padded(tris, perm)
+    mat_p = apply_perm_padded(mat_id, perm).astype(np.int32)
+    ctr_p = apply_perm_padded(centers, perm)
+
+    # smooth sphere normals (= direction from the blob center); material 1
+    # (odd spheres and the ground) gets the flat ground normal, as in the
+    # JAX package
+    normals = np.empty_like(tris_p)
+    for k in range(3):
+        v = tris_p[:, k, :] - ctr_p
+        n = v / np.maximum(np.linalg.norm(v, axis=-1, keepdims=True), 1e-9)
+        normals[:, k, :] = np.where((mat_p == 1)[:, None],
+                                    np.asarray([0.0, 1.0, 0.0]), n)
+
+    uvs = np.zeros((len(tris_p), 3, 2), np.float32)
+    uvs[:, 1, 0] = 1.0
+    uvs[:, 2, 1] = 1.0
+
+    arrays = {}
+    for k in range(3):
+        arrays[f"triangles.p{k}"] = tris_p[:, k]
+        arrays[f"triangles.n{k}"] = normals[:, k]
+        arrays[f"triangles.uv{k}"] = uvs[:, k]
+    arrays["triangles.mat_id"] = mat_p
+    arrays["triangles.obj_id"] = mat_p
+    for key in ("aabb_min", "aabb_max", "first_tri", "tri_count", "skip"):
+        arrays[f"bvh.{key}"] = f[key]
+    arrays["bvh.chunk_nodes"] = np.asarray(f["chunk_nodes"])
+    arrays["bvh.chunk_tris"] = np.asarray(f["chunk_tris"])
+    arrays.update(material_table_arrays([
+        dict(base_color=(0.75, 0.35, 0.3), roughness=0.4, metallic=0.2),
+        dict(base_color=(0.5, 0.55, 0.65), roughness=0.7),
+    ]))
+    arrays["lights.position"] = np.asarray([[2.0, 2.2, 2.0]], np.float32)
+    arrays["lights.radiance"] = np.asarray([[20.0, 19.0, 17.0]], np.float32)
+    env_img = procedural_room_envmap(env_width)
+    arrays["envmap.image"] = env_img
+    arrays["envmap.cache"] = env_cache_py(env_img)
+    return arrays
+
+
+def make_large_scene(n_spheres: int = 25, subdiv: int = 3,
+                     max_chunk_tris: int = 8192, leaf_size: int = 8,
+                     env_width: int = 128, seed: int = 11,
+                     device="cpu") -> Scene:
+    """make_large_scene_arrays, as a torch Scene on `device`."""
+    return scene_from_numpy(
+        make_large_scene_arrays(n_spheres, subdiv, max_chunk_tris, leaf_size,
+                                env_width, seed), device)

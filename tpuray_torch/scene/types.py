@@ -179,20 +179,19 @@ def scene_to_numpy(scene) -> dict[str, np.ndarray]:
 def scene_from_numpy(arrays: dict[str, np.ndarray], device="cpu") -> Scene:
     """Build a torch Scene on `device` from `scene_to_numpy`-style arrays.
 
-    Raises NotImplementedError for what this slice does not render:
-    texture stacks (ROADMAP.md item 9) and chunked forests (item 12)."""
+    A chunked forest's chunk_nodes / chunk_tris (0-d arrays, absent for a
+    single tree) become ints. Raises NotImplementedError for texture stacks
+    (ROADMAP.md item 9)."""
     if "textures.data" in arrays:
         raise NotImplementedError(
             "scenes with textures are not ported yet (ROADMAP.md item 9)")
-    if int(arrays.get("bvh.chunk_nodes", 0)):
-        raise NotImplementedError(
-            "chunked BVH forests (K6) are not ported yet (ROADMAP.md item 12)")
     parts = {}
     for group, cls in _GROUPS.items():
         kw = {}
         for f in dataclasses.fields(cls):
             key = f"{group}.{f.name}"
             if f.name in ("chunk_nodes", "chunk_tris"):
+                kw[f.name] = int(arrays.get(key, 0))
                 continue
             dt = np.int32 if f.name in _INT_FIELDS else np.float32
             a = np.array(arrays[key], dtype=dt)  # a writable copy
