@@ -37,15 +37,33 @@ Builds the CUDA kernels from csrc/ with nvcc (one process per source), then:
      on the test scene, against its plain version;
  12. 8 moving MIS frames and 8 moving separate-walk frames at 800x800
      (launches: K1 1 and K3 5 a frame each), and 2 frames of each through
-     the kernels against the plain versions.
+     the kernels against the plain versions;
+ 13. K7 (onehot_gather, on no path) at the main path's shapes: the
+     triangle table (20,482 x 26) at the 640,000 clamped primary hit
+     indices of phase 1, the material table at those hits' mat_id, and an
+     (11k, 44) table at 640k random indices; bit-exact against its plain
+     version, within 2^-16 relative of table[idx] (the library yardstick);
+ 14. the JAX package's six gradient checks (bench.py:307-434) through
+     render_frame with SVGF off, 128x128, depth 2: central FD against AD
+     for base_color, specular, sheen and light_radiance (relative error
+     < 0.05), light_pos_interior (order only, ratio in (0.3, 3)) and the
+     roughness AD sanity (finite, |g| > 1e-10);
+ 15. the trainer (cli/main.py:cmd_train's recovery) at 800x800, depth 2:
+     the target from render_flat, base_color * 0.4 + 0.3, then 5
+     make_train_step steps (every material and light field differentiated,
+     Adam with lr 1e-2 on base_color, the perturbed field) with the launch
+     counts set to 0 just before and read just after (K1 1 and K2 2 a
+     step); the loss must fall; then one step's gradients through the
+     kernels against the plain tracer's at 256x256.
 Any failed check raises (non-zero exit). The last lines are the kernels'
 JSON line (launches: the sum over every path run above, each run counted
-from 0 just before it; errors, times and bounds from phases 1-4, 8 and 11),
-the card's name and power limit, then {"ok": true, "device": {...}}.
+from 0 just before it; errors, times and bounds from phases 1-4, 8, 11 and
+13), the card's name and power limit, then {"ok": true, "device": {...}}.
 Needs no network and no jax. Exits non-zero without a CUDA device.
 """
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -56,17 +74,21 @@ import torch
 
 from tpuray_torch.denoise.svgf import svgf_pipeline
 from tpuray_torch.integrator import path_tracer as pt
+from tpuray_torch.integrator.gather_tables import fetch_tri, pack_scene_tables
 from tpuray_torch.integrator.intersect import INF
 from tpuray_torch.integrator.path_tracer import trace_paths
 from tpuray_torch.kernels import atrous as ka
 from tpuray_torch.kernels import build
+from tpuray_torch.kernels import gather as kg
 from tpuray_torch.kernels import reproject as kr
 from tpuray_torch.kernels import trace as kt
 from tpuray_torch.kernels import trace_chunked as ktc
-from tpuray_torch.render.renderer import Renderer, camera_rays
+from tpuray_torch.render.frame_state import FrameState
+from tpuray_torch.render.renderer import Renderer, camera_rays, render_frame
 from tpuray_torch.scene.camera import OrbitCamera
 from tpuray_torch.scene.config import RenderConfig
 from tpuray_torch.scene.procedural import make_large_scene, make_test_scene
+from tpuray_torch.train import optimize
 
 H = W = 800
 # slice 2: the default view (SVGF + TAA on) without compaction (item 10)
@@ -81,6 +103,10 @@ SLICE3_FRAMES = 8  # MIS and separate-walk frames
 FOREST_CHECK_SIZE = 256  # forest frames against the plain versions
 LARGE_CAM = dict(radius=4.0)  # sees the sphere field (tests/test_partition.py)
 KERNEL_REPS = 20
+GRAD_SIZE = 128     # bench.py's gradient checks
+TRAIN_STEPS = 5     # the trainer at W x H
+TRAIN_CHECK_SIZE = 256  # train-step gradients, kernels against plain
+GRAD_ATOL = 1e-4    # of each field's largest |gradient|: table[idx]'s backward sums with atomics
 MAX_MISMATCH = 1e-4  # idx / hit-miss / validity may differ on <= 0.01%
 RTOL, ATOL = 1e-5, 1e-6  # K4 and K5 against their plain versions
 
@@ -121,6 +147,21 @@ def kernel_ms(fn, reps: int = KERNEL_REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
+def median_ms(fn, reps: int = KERNEL_REPS) -> float:
+    """Median device time of reps launches of fn(), each between its own
+    pair of events, after 3 warm-ups."""
+    for _ in range(3):
+        fn()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    for start, end in events:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
 def once_ms(fn):
     """(result, ms) of one call, synchronised on both sides."""
     torch.cuda.synchronize()
@@ -146,10 +187,12 @@ def reset_launches() -> None:
     ktc.reset_launches()
     kr.reset_launches()
     ka.reset_launches()
+    kg.reset_launches()
 
 
 def launches() -> dict:
-    return {**kt.LAUNCHES, **ktc.LAUNCHES, **kr.LAUNCHES, **ka.LAUNCHES}
+    return {**kt.LAUNCHES, **ktc.LAUNCHES, **kr.LAUNCHES, **ka.LAUNCHES,
+            **kg.LAUNCHES}
 
 
 def check_closest(name, t, i, t_p, i_p):
@@ -342,6 +385,199 @@ def expect_launches(name, got: dict, want: dict) -> None:
     bad = {k: (got[k], n) for k, n in want.items() if got[k] != n}
     if bad:
         raise AssertionError(f"{name}: launches (got, want) {bad}")
+
+
+def check_k7(name, table, idx):
+    """K7 on one (table, idx) pair: bit-exact against its plain version,
+    within 2^-16 relative of table[idx]; kernel, plain and table[idx]
+    times and the bound."""
+    got = kg.onehot_gather(table, idx)
+    want, plain_ms = once_ms(lambda: kg.onehot_gather_plain(table, idx))
+    if not torch.equal(got, want):
+        n_bad = int((got != want).sum())
+        raise AssertionError(f"K7 {name}: {n_bad} values differ from the plain version")
+    lib = table[idx]
+    rel = float(((got - lib).abs() / lib.abs().clamp_min(2.0 ** -126)).max())
+    if rel > 2.0 ** -16:
+        raise AssertionError(f"K7 {name}: {rel:.3g} relative from table[idx] > 2^-16")
+    ms = median_ms(lambda: kg.onehot_gather(table, idx))
+    lib_ms = median_ms(lambda: table[idx])
+    b = bound(nbytes(table, idx, got), got.numel() * 4)  # 2 roundings, a subtract, an add
+    log(f"K7 {name}: table {tuple(table.shape)} at {idx.numel()} indices, bit-exact "
+        f"vs plain, max rel vs table[idx] {rel:.3g}; kernel {ms:.4f} ms (median of "
+        f"{KERNEL_REPS}), table[idx] {lib_ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {b[0]:.4f} ms by {b[1]}")
+    return ms, plain_ms, lib_ms, b
+
+
+def phase_k7(tables_pk, prim_idx, dev):
+    """13. K7 at the main path's shapes -> (ms, plain_ms, library_ms, bound)
+    of the triangle-table gather."""
+    idx = prim_idx.clamp_min(0).to(torch.int32).contiguous()
+    tri = tables_pk.tri_table.contiguous()
+    out = check_k7("triangle rows at the primary hits", tri, idx)
+    mat_id = fetch_tri(tri, idx).mat_id.to(torch.int32).contiguous()
+    check_k7("material rows at the primary hits", tables_pk.mat_table.contiguous(), mat_id)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    big = torch.rand((11_000, 44), generator=gen, device=dev) * 16.0 - 8.0
+    rnd = torch.randint(0, 11_000, (prim_idx.numel(),), generator=gen, device=dev,
+                        dtype=torch.int32)
+    check_k7("(11k, 44) at random indices", big, rnd)
+    return out
+
+
+def gradcheck(name, image_of, x0, eps, tol, dev, order_only=False) -> dict:
+    """bench.py's run_check on the loss mean(image_of(s)): AD at x0 against
+    central FD with step eps. The mean is accumulated in float64 (the
+    bench's float32 mean loses several percent of a small FD difference to
+    rounding: both are printed, the float64 one is checked)."""
+    s = torch.tensor(x0, dtype=torch.float32, device=dev, requires_grad=True)
+    image_of(s).double().mean().backward()
+    g = float(s.grad)
+    with torch.no_grad():
+        hi = image_of(torch.tensor(x0 + eps, dtype=torch.float32, device=dev))
+        lo = image_of(torch.tensor(x0 - eps, dtype=torch.float32, device=dev))
+    fd = float(hi.double().mean() - lo.double().mean()) / (2 * eps)
+    fd32 = (float(hi.mean()) - float(lo.mean())) / (2 * eps)
+    rel = abs(g - fd) / max(abs(fd), 1e-8)
+    if order_only:
+        ratio = g / fd if abs(fd) > 1e-10 else float("inf")
+        ok = math.isfinite(g) and 0.3 < ratio < 3.0
+    else:
+        ok = rel < tol
+    line = {"metric": f"gradcheck_{name}_rel_err", "value": rel, "grad": g, "fd": fd,
+            "fd_f32_mean": fd32, "pass": ok}
+    if order_only:
+        line["mode"] = "order_only"
+    log(json.dumps(line))
+    if not ok:
+        raise AssertionError(f"gradcheck {name}: AD {g:.6g} vs FD {fd:.6g} (rel {rel:.3g})")
+    return line
+
+
+def phase_gradchecks(scene, tables, dev) -> None:
+    """14. bench.py's six gradient checks through render_frame, SVGF off."""
+    gh = gw = GRAD_SIZE
+    cfg = RenderConfig(width=gw, height=gh, max_tracing_depth=2, enable_svgf=False,
+                       compact_frac=0.0, compact_auto=False)
+    cam = OrbitCamera(width=gw, height=gh).snapshot(dev)
+    st0 = FrameState.initial(gh, gw, dev)
+    m, lights = scene.materials, scene.lights
+
+    def image(**parts):
+        _, out = render_frame(scene.replace(**parts), cam, st0, cfg, gh, gw,
+                              tables=tables)
+        return out.pt_color
+
+    def light_pos(dx):
+        lp = lights.position
+        z = torch.zeros(lp.shape[:1], device=dev)
+        return lights.replace(position=lp + torch.stack([dx.expand(lp.shape[:1]), z, z],
+                                                        dim=-1))
+
+    t0 = time.perf_counter()
+    gradcheck("base_color", lambda s: image(
+        materials=m.replace(base_color=torch.abs(m.base_color) * s)), 0.8, 1e-2, 0.05, dev)
+    gradcheck("specular", lambda s: image(
+        materials=m.replace(specular=torch.full_like(m.specular, 0.5) * s)),
+        0.9, 1e-2, 0.05, dev)
+    gradcheck("sheen", lambda s: image(
+        materials=m.replace(sheen=torch.full_like(m.sheen, 0.5) * s)), 0.9, 1e-2, 0.05, dev)
+    gradcheck("light_radiance", lambda s: image(
+        lights=lights.replace(radiance=lights.radiance * s)), 0.9, 1e-2, 0.05, dev)
+    gradcheck("light_pos_interior", lambda dx: image(lights=light_pos(dx)),
+              0.0, 5e-3, 0.0, dev, order_only=True)
+    s = torch.tensor(0.9, device=dev, requires_grad=True)
+    image(materials=m.replace(roughness=torch.clamp(torch.abs(m.roughness) * s, 0.05, 1.0))
+          ).double().mean().backward()
+    g2 = float(s.grad)
+    ok = math.isfinite(g2) and abs(g2) > 1e-10
+    log(json.dumps({"metric": "gradcheck_roughness_d2_ad_sanity", "value": g2,
+                    "pass": ok}))
+    if not ok:
+        raise AssertionError(f"roughness AD sanity: {g2}")
+    log(f"gradient checks: 6 at {gw}x{gh}, depth 2, SVGF off, in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
+def train_grads(scene, cfg, cam, target, size, tracer) -> tuple[float, dict]:
+    """One make_train_step step (lr 0) from the perturbed materials ->
+    (loss, {field: gradient})."""
+    params, rebuild = optimize.split_trainable(scene, device=scene.triangles.p0.device)
+    with torch.no_grad():
+        params["materials"].base_color.mul_(0.4).add_(0.3)
+    init, step = optimize.make_train_step(
+        rebuild, cfg, size, size, lambda p: torch.optim.SGD(p, lr=0.0), tracer=tracer)
+    state, loss = step(init(params), target, cam, 0)
+    return float(loss), {f"{g}.{f.name}": getattr(t, f.name).grad
+                         for g, t in state.params.items()
+                         for f in dataclasses.fields(t)}
+
+
+def phase_train(scene, dev) -> dict:
+    """15. cmd_train's recovery at W x H, then kernel against plain
+    gradients at TRAIN_CHECK_SIZE -> the steps' launches."""
+    cfg = RenderConfig(width=W, height=H, max_tracing_depth=2, compact_frac=0.0,
+                       compact_auto=False)
+    cam = OrbitCamera(width=W, height=H).snapshot(dev)
+    params, rebuild = optimize.split_trainable(scene, device=dev)
+    with torch.no_grad():
+        target = optimize.render_flat(rebuild(params), cam, cfg, H, W, 0)
+        params["materials"].base_color.mul_(0.4).add_(0.3)
+    # Adam on every leaf, as cmd_train, moves clearcoat_gloss past 1 in one
+    # step, where GTR1's denominator rounds to 0 (ROADMAP.md section 3)
+    init, step = optimize.make_train_step(
+        rebuild, cfg, H, W,
+        lambda _: torch.optim.Adam([params["materials"].base_color], lr=1e-2))
+    state = init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    reset_launches()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, target, cam, 0)
+        losses.append(float(loss))  # synchronises
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    run = launches()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train steps: {TRAIN_STEPS} at {W}x{H}, depth 2, Adam lr 1e-2 on base_color: losses "
+        f"{losses}; step ms {[round(x, 3) for x in step_ms]}, median "
+        f"{statistics.median(step_ms):.3f} ms; peak memory "
+        f"{peak / 2 ** 30:.3f} GiB ({(peak - base_mem) / 2 ** 30:.3f} GiB above the "
+        f"scene and target); launches {run}")
+    expect_launches("train steps", run, dict(k1=TRAIN_STEPS, k2=2 * TRAIN_STEPS, k3=0,
+                                             k4=0, k5=0, k6=0, k7=0))
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"the training loss does not fall: {losses}")
+    for leaf in optimize.parameters(state.params):
+        if not bool(torch.isfinite(leaf).all()):
+            raise AssertionError("a trained parameter is not finite")
+
+    n = TRAIN_CHECK_SIZE
+    cfg_s = dataclasses.replace(cfg, width=n, height=n)
+    cam_s = OrbitCamera(width=n, height=n).snapshot(dev)
+    with torch.no_grad():
+        target_s = optimize.render_flat(scene, cam_s, cfg_s, n, n, 0)
+    loss_k, g_k = train_grads(scene, cfg_s, cam_s, target_s, n, pt.KERNELS)
+    (loss_p, g_p), plain_ms = once_ms(
+        lambda: train_grads(scene, cfg_s, cam_s, target_s, n, pt.PLAIN))
+    worst = 0.0
+    for name, ref in g_p.items():
+        got = g_k[name]
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        if not bool(torch.isfinite(got).all()) or err > GRAD_ATOL * scale + 1e-12:
+            raise AssertionError(f"train-step gradient {name}: kernels differ from plain "
+                                 f"by {err:.3g} (largest |g| {scale:.3g})")
+        worst = max(worst, err / scale if scale else 0.0)
+    if abs(loss_k - loss_p) > 1e-5 * abs(loss_p):
+        raise AssertionError(f"train-step loss: kernels {loss_k} vs plain {loss_p}")
+    log(f"train-step gradients at {n}x{n}: kernels vs plain tracer, loss "
+        f"{loss_k:.9g} vs {loss_p:.9g}, max |diff| / max |g| per field {worst:.3g} (atol "
+        f"{GRAD_ATOL} of it); plain step {plain_ms:.1f} ms")
+    return run
 
 
 def main() -> None:
@@ -662,10 +898,20 @@ def main() -> None:
                             out_p.final)
         del r
 
-    def entry(name, source, replaces, key, err, ms, plain_ms, b):
+    # ---- 13. K7 at the main path's shapes (no path calls it)
+    k7_ms, k7_plain_ms, k7_lib_ms, k7_bound = phase_k7(pack_scene_tables(scene), i_k, dev)
+
+    # ---- 14. the gradient checks, SVGF off
+    phase_gradchecks(scene, tables, dev)
+
+    # ---- 15. the trainer at 800x800
+    add_launches(path_launches, phase_train(scene, dev))
+
+    def entry(name, source, replaces, key, err, ms, plain_ms, b, library_ms=None):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=path_launches[key], max_abs_err=err, ms=ms,
-                    plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None)
+                    plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+                    library_ms=library_ms)
 
     kernels = [
         entry("K1 trace_packets", "tpuray_torch/csrc/trace.cu",
@@ -686,6 +932,9 @@ def main() -> None:
         entry("K6 trace_chunked", "tpuray_torch/csrc/trace_chunked.cu",
               "tpuray/kernels/trace_chunked.py:66", "k6", k6_err, k6_ms, k6_plain_ms,
               k6_bound),
+        entry("K7 onehot_gather", "tpuray_torch/csrc/gather.cu",
+              "tpuray/kernels/gather_pallas.py:56", "k7", 0.0, k7_ms, k7_plain_ms,
+              k7_bound, library_ms=k7_lib_ms),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

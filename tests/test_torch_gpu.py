@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 K1 (shared-origin primaries), K2 (fused bounce classes), K3 (per-ray
-origins), K4 and K5 (the denoiser), K6 (a chunked forest), and frames of
-every path through them.
+origins), K4 and K5 (the denoiser), K6 (a chunked forest), K7 (the one-hot
+hi/lo gather), frames of every path through them, and a train step's
+gradients through the traversal kernels against the plain tracer's.
 
 Every test here is marked `gpu` and skips without a CUDA device. This file
 imports no jax (the card's machine has none), so it runs there without
@@ -15,13 +16,19 @@ only as an exact-t tie, which the walk order decides); any-hit hit/miss
 exact. K4 and K5 (the denoiser) repeat their plain versions' op order too:
 history_len exact, every other output within rtol 1e-5 / atol 1e-6 (exp
 and pow may round their last bit differently); frames through the kernels
-within tests/test_dist_frame.py's image tolerance of the plain frame."""
+within tests/test_dist_frame.py's image tolerance of the plain frame.
+K7 bit-exact. Train-step gradients within 1e-4 of each field's largest
+|gradient| (t and idx are bit-exact, but the backward of table[idx] on
+CUDA sums with atomics, in an order that changes from run to run)."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from tpuray_torch.integrator.path_tracer import PLAIN, pack_traversal
+from tpuray_torch.integrator.path_tracer import KERNELS, PLAIN, pack_traversal
 from tpuray_torch.kernels import atrous as ka
+from tpuray_torch.kernels import gather as kg
 from tpuray_torch.kernels import reproject as kr
 from tpuray_torch.kernels import trace as kt
 from tpuray_torch.kernels import trace_chunked as ktc
@@ -29,6 +36,7 @@ from tpuray_torch.render.renderer import Renderer
 from tpuray_torch.scene.camera import OrbitCamera
 from tpuray_torch.scene.config import RenderConfig
 from tpuray_torch.scene.procedural import make_large_scene, make_test_scene
+from tpuray_torch.train import optimize
 
 pytestmark = pytest.mark.gpu
 
@@ -318,3 +326,69 @@ def test_slice3_frames_match_plain(cuda_scene, cuda_forest, case):
     assert float(d.max()) < 0.1
     assert bool(torch.isfinite(out_k.final).all())
     assert 0.05 < float(out_k.coverage) < 1.0
+
+
+@pytest.mark.parametrize("t_rows,w,n", [(1000, 26, 3000), (2048, 8, 4096),
+                                        (600, 44, 777), (20482, 26, 65536)])
+def test_k7_matches_plain(cuda_scene, t_rows, w, n):
+    rng = np.random.default_rng(t_rows)
+    table = rng.uniform(-8, 8, (t_rows, w)).astype(np.float32)
+    table[0, :4] = [1.0 / 3.0, 0.1, 1e-40, -0.0]  # a third, a subnormal, -0
+    idx = rng.integers(0, t_rows, n).astype(np.int32)
+    idx[::9] = -1
+    idx[1::9] = t_rows + 3
+    idx[2::9] = 0
+    tg, ig = _cuda(table, idx)
+    kg.reset_launches()
+    got = kg.onehot_gather(tg, ig)
+    assert kg.LAUNCHES["k7"] == 1
+    want = kg.onehot_gather_plain(tg, ig)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert bool((got[::9] == 0).all()) and not torch.equal(got, tg[ig.clamp(0, t_rows - 1).long()])
+
+
+def test_k7_checks_its_inputs(cuda_scene):
+    table = torch.rand((16, 4), device="cuda")
+    with pytest.raises(TypeError, match="dtype"):
+        kg.onehot_gather(table, torch.arange(8, device="cuda"))
+    with pytest.raises(ValueError, match="contiguous"):
+        kg.onehot_gather(table.T.contiguous().T, torch.arange(8, device="cuda",
+                                                             dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="forward-only"):
+        kg.onehot_gather(table.requires_grad_(True),
+                         torch.arange(8, device="cuda", dtype=torch.int32))
+
+
+def test_train_step_kernels_match_plain(cuda_scene):
+    """One make_train_step step at 64x64: the loss and every gradient
+    through K1 + K2 equal the plain tracer's; K1 once and K2 twice."""
+    scene, _ = cuda_scene
+    h = w = 64
+    cfg = RenderConfig(width=w, height=h, compact_frac=0.0, compact_auto=False)
+    cam = OrbitCamera(width=w, height=h, yaw_deg=20.0).snapshot()
+    params, rebuild = optimize.split_trainable(scene, device="cuda")
+    with torch.no_grad():
+        target = optimize.render_flat(rebuild(params), cam, cfg, h, w, 0)
+    grads, losses = [], []
+    for tracer in (KERNELS, PLAIN):
+        params, rebuild = optimize.split_trainable(scene, device="cuda")
+        with torch.no_grad():
+            params["materials"].base_color.mul_(0.4).add_(0.3)
+        init, step = optimize.make_train_step(
+            rebuild, cfg, h, w, lambda p: torch.optim.SGD(p, lr=0.0), tracer=tracer)
+        state = init(params)
+        kt.reset_launches()
+        state, loss = step(state, target, cam, 0)
+        if tracer is KERNELS:
+            assert kt.LAUNCHES == {"k1": 1, "k2": 2, "k3": 0}
+        losses.append(loss)
+        grads.append({f"{g}.{f.name}": getattr(t, f.name).grad
+                      for g, t in state.params.items() for f in dataclasses.fields(t)})
+    torch.testing.assert_close(losses[0], losses[1], rtol=1e-5, atol=0)
+    for name, g in grads[0].items():
+        ref = grads[1][name]
+        assert bool(torch.isfinite(g).all()), name
+        torch.testing.assert_close(g, ref, rtol=0,
+                                   atol=1e-4 * float(ref.abs().max()) + 1e-12, msg=name)
+    assert float(grads[0]["materials.base_color"].abs().max()) > 0.0

@@ -6,14 +6,17 @@ as the reference, and tests/test_torch_*.py hold each module against it on
 the CPU. The kernels are hand-written CUDA in csrc/, built with nvcc at
 first use: the BVH traversal (K1 trace_packets, K2 trace_multi, K3
 trace_batched, K6 trace_chunked for chunked forests), the SVGF reproject +
-variance pass (K4) and the a-trous iteration (K5). On CPU tensors their
-wrappers run the plain PyTorch versions.
+variance pass (K4), the a-trous iteration (K5) and the one-hot hi/lo
+gather (K7, which no path calls). On CPU tensors their wrappers run the
+plain PyTorch versions.
 
 The Renderer renders the default view (SVGF + TAA) of a moving camera on
 the card (device="cuda" by default; pass device="cpu" to render on the
 CPU), on a single BVH or a chunked forest, with the NEE integrator (fused
 or separate walks) or the MIS integrator; see ROADMAP.md for what raises
-NotImplementedError until later slices.
+NotImplementedError until later slices. A frame differentiates with
+respect to materials and lights (render_frame, train.optimize; the
+traversal is topology only), and train.optimize holds the recovery step.
 """
 
 __version__ = "0.1.0"

@@ -239,6 +239,39 @@ def sample_cosine_hemisphere(xi1: Tensor, xi2: Tensor, n: Tensor) -> Tensor:
     return to_normal_hemisphere(torch.stack([x, y, z], dim=-1), n)
 
 
+def records_grad(x: Tensor) -> bool:
+    """Whether autograd records ops on x. The helpers below that give an op
+    JAX's gradient take their plain form otherwise: same values, fewer
+    kernels on the serving path."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+_ONE = torch.tensor(1.0)  # a CPU scalar: usable beside tensors on any device
+
+
+def _cos_from_ratio(r: Tensor) -> Tensor:
+    """sqrt(clip(r, 0, 1)) with jnp.clip's gradient at r == 1, where the
+    ratio rounds on many lanes: half the gradient, as jnp.minimum splits a
+    tie (torch.clamp passes all of it). r == 0 needs xi2 == 1, which the
+    samples never reach."""
+    if not records_grad(r):
+        return torch.sqrt(torch.clamp(r, 0.0, 1.0))
+    return torch.sqrt(torch.minimum(torch.clamp_min(r, 0.0), _ONE))
+
+
+def _sin_from_cos(ct: Tensor) -> Tensor:
+    """sqrt(max(1 - ct^2, 0)) with a zero gradient where it is 0. The values
+    are the JAX package's, bit for bit; its derivative there is infinite, and
+    a lobe that the sample does not pick passes it 0 * inf = NaN, which
+    reaches clearcoat_gloss (or roughness) from every lane whose ct rounds
+    to 1 (ROADMAP.md section 3)."""
+    s = 1.0 - ct * ct
+    if not records_grad(s):
+        return torch.sqrt(torch.clamp_min(s, 0.0))
+    pos = s > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, s, 1.0)), 0.0)
+
+
 def _reflect(v: Tensor, h: Tensor) -> Tensor:
     return v - 2.0 * torch.sum(v * h, dim=-1, keepdim=True) * h
 
@@ -246,9 +279,8 @@ def _reflect(v: Tensor, h: Tensor) -> Tensor:
 def sample_gtr2(xi1: Tensor, xi2: Tensor, v: Tensor, n: Tensor,
                 alpha: Tensor) -> Tensor:
     phi = _TWO_PI * xi1
-    ct = torch.sqrt(torch.clamp((1.0 - xi2) / (1.0 + (alpha * alpha - 1.0) * xi2),
-                                0.0, 1.0))
-    st = torch.sqrt(torch.clamp_min(1.0 - ct * ct, 0.0))
+    ct = _cos_from_ratio((1.0 - xi2) / (1.0 + (alpha * alpha - 1.0) * xi2))
+    st = _sin_from_cos(ct)
     h = to_normal_hemisphere(
         torch.stack([st * torch.cos(phi), st * torch.sin(phi), ct], dim=-1), n)
     return _reflect(-v, h)
@@ -269,10 +301,9 @@ def sample_gtr1(xi1: Tensor, xi2: Tensor, v: Tensor, n: Tensor,
                 alpha: Tensor) -> Tensor:
     phi = _TWO_PI * xi1
     a2 = alpha * alpha
-    ct = torch.sqrt(torch.clamp(
-        (1.0 - torch.pow(a2, 1.0 - xi2)) / torch.clamp_min(1.0 - a2, 1e-8),
-        0.0, 1.0))
-    st = torch.sqrt(torch.clamp_min(1.0 - ct * ct, 0.0))
+    ct = _cos_from_ratio(
+        (1.0 - torch.pow(a2, 1.0 - xi2)) / torch.clamp_min(1.0 - a2, 1e-8))
+    st = _sin_from_cos(ct)
     h = to_normal_hemisphere(
         torch.stack([st * torch.cos(phi), st * torch.sin(phi), ct], dim=-1), n)
     return _reflect(-v, h)

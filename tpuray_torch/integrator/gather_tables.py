@@ -34,6 +34,40 @@ class TriAttrs(NamedTuple):
     obj_id: Tensor
 
 
+# a table of at most this many rows gathers with a one-hot backward (the
+# JAX package's fetch_small_table bound)
+SMALL_TABLE_ROWS = 64
+
+
+class _SmallTableRows(torch.autograd.Function):
+    """table[idx] whose backward sums each row's gradient with a one-hot
+    matmul. PyTorch's index backward serialises repeated indices: a
+    2-material table fetched at 640k hits took 0.46 s of a 0.52 s train
+    step at 800x800 on an H100 (PERF.md)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, = ctx.saved_tensors
+        onehot = torch.nn.functional.one_hot(idx, ctx.n_rows).to(grad.dtype)
+        return onehot.T @ grad, None
+
+
+def fetch_rows(table: Tensor, idx: Tensor) -> Tensor:
+    """table[idx] for an (M, W) table and (N,) int64 indices. While autograd
+    records a small table, its backward is a one-hot matmul, which the
+    JAX package's select-chain fetch also reduces to."""
+    if (table.requires_grad and torch.is_grad_enabled()
+            and table.shape[0] <= SMALL_TABLE_ROWS):
+        return _SmallTableRows.apply(table, idx)
+    return table[idx]
+
+
 def pack_tri_table(tri) -> Tensor:
     return torch.cat([tri.p0, tri.p1, tri.p2, tri.n0, tri.n1, tri.n2,
                       tri.uv0, tri.uv1, tri.uv2,
@@ -62,7 +96,7 @@ def pack_material_table(m) -> Tensor:
 
 
 def fetch_material(table: Tensor, mat_id: Tensor) -> ShadeMaterial:
-    row = table[mat_id]
+    row = fetch_rows(table, mat_id)
     return ShadeMaterial(
         emissive=row[..., 0:3], base_color=row[..., 3:6],
         subsurface=row[..., 6], metallic=row[..., 7], specular=row[..., 8],

@@ -10,8 +10,12 @@ single tree to K1 and per-ray origins to K3 (kernels/trace.py). On a
 single tree with cfg.fused_secondary each bounce's three walks are one K2
 walk (trace_multi); otherwise, and always on a forest, they are separate
 walks in the JAX package's order: env shadow, point shadow, bounce ray.
-integrator="mis" hands the frame to integrator/mis.py. Runs under
-torch.no_grad (differentiation is ROADMAP.md item 13).
+integrator="mis" hands the frame to integrator/mis.py.
+
+Differentiable as the JAX package's is: the traversal is topology only (its
+entries run under torch.no_grad, kernels/trace.py), resolve_hit detaches t
+(the JAX package's stop_gradient), and every shading op after it carries
+gradients to the material and light tables (train/optimize.py).
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ import torch
 from tpuray_torch.integrator import disney
 from tpuray_torch.integrator.disney import ShadeMaterial, safe_normalize
 from tpuray_torch.integrator.gather_tables import (
-    PackedScene, fetch_material, fetch_tri, pack_scene_tables)
+    PackedScene, fetch_material, fetch_rows, fetch_tri, pack_scene_tables)
 from tpuray_torch.integrator.intersect import INF, barycentrics, cross
 from tpuray_torch.kernels import trace as ktrace
 from tpuray_torch.kernels import trace_chunked as ktc
@@ -99,6 +103,14 @@ def resolve_aniso(scene, cfg: RenderConfig) -> bool:
     return bool((scene.materials.anisotropic > 0.0).any())
 
 
+def _abs(x: Tensor) -> Tensor:
+    """|x| with jnp.abs's gradient: +1 at x == 0, where torch.abs passes 0
+    (a metallic of 0, the common value, would learn nothing)."""
+    if not disney.records_grad(x):
+        return torch.abs(x)
+    return torch.where(x >= 0.0, x, -x)
+
+
 class Hit(NamedTuple):
     """What shading reads of a hit. (The JAX Hit's uv feeds only textures,
     ROADMAP.md item 9; its geometric normal has no reader.)"""
@@ -114,7 +126,9 @@ def resolve_hit(pk: PackedScene, orig: Tensor, d: Tensor, t: Tensor,
     """Hit point, shading normal and material from (t, triangle index)."""
     valid = idx >= 0
     i = torch.clamp_min(idx, 0)
-    t = torch.where(valid, t, 1.0)
+    # topology only: no gradient through the hit distance; point keeps the
+    # one through orig and d
+    t = torch.where(valid, t, 1.0).detach()
 
     tri = fetch_tri(pk.tri_table, i)
     p0, p1, p2 = tri.p0, tri.p1, tri.p2
@@ -130,9 +144,9 @@ def resolve_hit(pk: PackedScene, orig: Tensor, d: Tensor, t: Tensor,
 
     mat = fetch_material(pk.mat_table, tri.mat_id)
     # texture sentinels without a texture stack: clamp so shading stays sane
-    mat = mat._replace(base_color=torch.abs(mat.base_color),
-                       metallic=torch.abs(mat.metallic),
-                       roughness=torch.abs(mat.roughness))
+    mat = mat._replace(base_color=_abs(mat.base_color),
+                       metallic=_abs(mat.metallic),
+                       roughness=_abs(mat.roughness))
     return Hit(valid=valid, point=point, normal=ns, mat=mat)
 
 
@@ -171,7 +185,7 @@ def _point_nee_sample(pk: PackedScene, hit: Hit, u: Tensor
     """Point-light pick + direction -> (direction, distance, radiance)."""
     n_lights = pk.light_table.shape[0]
     li = torch.clamp_max((u * n_lights).to(torch.int64), n_lights - 1)
-    lrow = pk.light_table[li]
+    lrow = fetch_rows(pk.light_table, li)
     lpos = lrow[..., 0:3]
     lrad = lrow[..., 3:6]
     delta = lpos - hit.point
@@ -389,7 +403,6 @@ def _shade_loop(pk: PackedScene, tables: ktrace.TraceTables,
                      normal0=normal0)
 
 
-@torch.no_grad()
 def trace_paths(scene, orig: Tensor, d: Tensor, px: Tensor, py: Tensor,
                 frame: int, cfg: RenderConfig, common_origin: bool = False,
                 tracer: Tracer = KERNELS,

@@ -5,6 +5,7 @@ csrc/atrous.cu (see its header for the design); its plain version is
 denoise/atrous.py:atrous_iteration, chained here as atrous_chain_plain.
 
 The wrapper
+- raises if an input requires grad (forward only, as K4);
 - runs the plain chain when its tensors lie on the CPU;
 - on CUDA tensors, checks device, dtype, shape and contiguity, packs the
   static G-buffer once per chain (float4 normal + linear_z, and fwidth_z)
@@ -23,6 +24,7 @@ import torch
 from tpuray_torch.denoise.atrous import atrous_iteration
 from tpuray_torch.denoise.common import squarings
 from tpuray_torch.kernels import build
+from tpuray_torch.kernels.reproject import NO_GRAD_HINT
 from tpuray_torch.scene.config import RenderConfig
 
 Tensor = torch.Tensor
@@ -65,6 +67,8 @@ def atrous_chain(illum: Tensor, variance: Tensor, normal: Tensor,
     fwidth_z (H, W), float32. Returns ((illum, variance), (tap_illum,
     tap_variance)), the tap being the output of iteration
     cfg.history_atrous_tap (main.cpp:521-525)."""
+    build.refuse_grad("atrous_chain (K5)", NO_GRAD_HINT, illum, variance,
+                      normal, linear_z, fwidth_z)
     if illum.device.type == "cpu":
         return atrous_chain_plain(illum, variance, normal, linear_z, fwidth_z, cfg)
     if illum.device.type != "cuda":

@@ -19,9 +19,12 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(_PKG / "csrc" / f for f in ("trace.cu", "trace_chunked.cu",
-                                             "reproject.cu", "atrous.cu"))
+                                             "reproject.cu", "atrous.cu",
+                                             "gather.cu"))
 HEADERS = (_PKG / "csrc" / "trace_common.cuh",)
 BUILD_ROOT = _PKG.parent / "build" / "tpuray_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -30,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "tpuray_trace_packets": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                              _I, _I, _P],
@@ -42,6 +46,7 @@ _SIGNATURES = {
     "tpuray_reproject_variance": [_P] * 20 + [_I, _I, _F, _F, _F, _F, _F, _I,
                                               _F, _I, _P],
     "tpuray_atrous_step": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _I, _P],
+    "tpuray_onehot_gather": [_P, _P, _P, _I, _I, _L, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -115,6 +120,17 @@ def check(x, name: str, dtype, shape: tuple, device) -> None:
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def refuse_grad(what: str, hint: str, *tensors) -> None:
+    """Raise if autograd would record a gradient through a forward-only
+    kernel (any input requires grad while grad mode is on): the kernel would
+    hand back a tensor with no graph, and the gradient would be lost
+    silently. The JAX package's Pallas kernels have no JVP rule either."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} is forward-only: an input requires grad, and the JAX "
+            f"package's Pallas kernel has no JVP rule either; {hint}")
 
 
 def raise_on(rc: int, what: str) -> None:

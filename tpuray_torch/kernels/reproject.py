@@ -7,6 +7,8 @@ followed by estimate_variance, which is this module's plain version; the
 TPU kernel's tile-windowed history read is not carried over.
 
 The wrapper
+- raises if an input requires grad (forward only, as the JAX package's
+  kernel; pallas_denoise=False runs the plain stages, which differentiate);
 - runs the plain version when its tensors lie on the CPU;
 - on CUDA tensors, checks device, dtype, shape and contiguity, allocates
   the six outputs, launches the two passes on the current stream, raises if
@@ -30,6 +32,9 @@ Tensor = torch.Tensor
 
 # kernel launches since the last reset (the plain path never counts)
 LAUNCHES = {"k4": 0}
+
+NO_GRAD_HINT = ("RenderConfig(pallas_denoise=False) runs the plain denoiser "
+                "stages, which carry the gradient")
 
 
 def reset_launches() -> None:
@@ -79,6 +84,8 @@ def reproject_variance_fused(cfg: RenderConfig, **inputs: Tensor
     gather_mode(cfg)
     if set(inputs) != {n for n, _ in _INPUTS}:
         raise TypeError(f"reproject_variance_fused takes {[n for n, _ in _INPUTS]}")
+    build.refuse_grad("reproject_variance_fused (K4)", NO_GRAD_HINT,
+                      *inputs.values())
     color = inputs["color"]
     if color.device.type == "cpu":
         return reproject_variance_plain(cfg, **inputs)

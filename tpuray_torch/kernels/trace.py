@@ -17,6 +17,11 @@ pack_tables below.
 
 Traversal returns topology only, (t, triangle index) with (INF, -1) on a
 miss; shading re-derives everything else (integrator/path_tracer.py).
+Every entry here, kernel or plain, runs under torch.no_grad, so its
+outputs never require grad whatever its inputs do: the topology-only
+contract of the JAX package's zero-tangent custom_jvp
+(tpuray/kernels/trace_pallas.py:810-858). Gradients flow through the
+shading that resolve_hit re-derives from the detached t.
 """
 from __future__ import annotations
 
@@ -153,6 +158,7 @@ def _rays_tmax(t_max, n: int, device) -> Tensor:
 
 # ------------------------------------------------------------ plain versions
 
+@torch.no_grad()
 def trace_packets_plain(tables: TraceTables, orig: Tensor, d: Tensor,
                         t_max: Tensor | float, any_hit: bool = False,
                         common_origin: bool = False, stats: dict | None = None
@@ -169,6 +175,7 @@ def trace_packets_plain(tables: TraceTables, orig: Tensor, d: Tensor,
         orig.expand(n, 3), d, t_max, any_hit, stats)
 
 
+@torch.no_grad()
 def trace_multi_plain(tables: TraceTables, orig: Tensor,
                       dirs: Sequence[Tensor], t_maxs: Sequence[Tensor],
                       any_hits: Sequence[bool], stats: dict | None = None
@@ -221,6 +228,7 @@ def _launch_single(entry: str, key: str, tables: TraceTables, orig: Tensor,
     return t_out, idx_out
 
 
+@torch.no_grad()
 def trace_packets(tables: TraceTables, orig: Tensor, d: Tensor,
                   t_max: Tensor | float, any_hit: bool = False,
                   common_origin: bool = False) -> tuple[Tensor, Tensor]:
@@ -244,6 +252,7 @@ def trace_packets(tables: TraceTables, orig: Tensor, d: Tensor,
                           t_max, any_hit)
 
 
+@torch.no_grad()
 def trace_batched(tables: TraceTables, orig: Tensor, d: Tensor,
                   t_max: Tensor | float, any_hit: bool = False
                   ) -> tuple[Tensor, Tensor]:
@@ -257,6 +266,7 @@ def trace_batched(tables: TraceTables, orig: Tensor, d: Tensor,
                           t_max, any_hit)
 
 
+@torch.no_grad()
 def trace_multi(tables: TraceTables, orig: Tensor, dirs: Sequence[Tensor],
                 t_maxs: Sequence[Tensor], any_hits: Sequence[bool]
                 ) -> list[tuple[Tensor, Tensor]]:

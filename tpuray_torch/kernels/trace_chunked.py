@@ -15,6 +15,10 @@ The forest layout is scene/partition.py:build_forest_bvh_uniform's: chunk
 c owns node rows [c*CN, (c+1)*CN) and triangle rows [c*CT, (c+1)*CT), with
 global indices. pack_forest keeps them global (kernels/trace.py:
 pack_tables), so a hit's idx is the forest-wide triangle row.
+
+Like K1-K3, both entries run under torch.no_grad: topology only, as the
+JAX package's zero-tangent custom_jvp (tpuray/kernels/trace_chunked.py:
+459-478).
 """
 from __future__ import annotations
 
@@ -93,6 +97,7 @@ def pack_forest(bvh, tri) -> kt.TraceTables:
                                chunk_tris=ct)
 
 
+@torch.no_grad()
 def trace_chunked_plain(tables: kt.TraceTables, orig: Tensor, d: Tensor,
                         t_max: Tensor | float, any_hit: bool = False,
                         common_origin: bool = False, stats: dict | None = None
@@ -105,6 +110,7 @@ def trace_chunked_plain(tables: kt.TraceTables, orig: Tensor, d: Tensor,
                                   common_origin, stats)
 
 
+@torch.no_grad()
 def trace_chunked(tables: kt.TraceTables, orig: Tensor, d: Tensor,
                   t_max: Tensor | float, any_hit: bool = False,
                   common_origin: bool = False) -> tuple[Tensor, Tensor]:

@@ -5,9 +5,11 @@
 Renders size x size frames, moving the camera 0.5 degrees a frame, for
 each run: the chip_smoke.py test scene (20,482 triangles) with SVGF off,
 with SVGF on (the default view, compaction off) and under the MIS
-integrator (SVGF on); and the 131k-triangle forest
-(make_large_scene(25 spheres, subdiv 4), SVGF on, OrbitCamera radius 4).
-For each: 3 warm-up frames and `--frames` synchronised frames timed on the
+integrator (SVGF on); the 131k-triangle forest
+(make_large_scene(25 spheres, subdiv 4), SVGF on, OrbitCamera radius 4);
+and a train step on the test scene (chip_smoke.py phase 15: render_flat,
+its MSE's backward through every material and light field, Adam on
+base_color; a "frame" of this run is a step). For each: 3 warm-up frames and `--frames` synchronised frames timed on the
 host clock, every run before any profiling; then `--frames` frames of each
 under torch.profiler. Prints per frame the wall time, the device kernels,
 their summed device time, the device's busy share (device time over the
@@ -36,10 +38,12 @@ from tpuray_torch.render.renderer import Renderer
 from tpuray_torch.scene.camera import OrbitCamera
 from tpuray_torch.scene.config import RenderConfig
 from tpuray_torch.scene.procedural import make_large_scene, make_test_scene
+from tpuray_torch.train import optimize
 
 # device-kernel name prefixes of the hand-written kernels (csrc/*.cu)
 _OURS = {"K1/K3": "trace_k1", "K2": "trace_k2", "K6": "trace_k6",
-         "K4": ("reproject_pass", "variance_pass"), "K5": "atrous_step"}
+         "K4": ("reproject_pass", "variance_pass"), "K5": "atrous_step",
+         "K7": "onehot_gather_k7"}
 
 
 def _kernels(prof) -> list[tuple[str, float]]:
@@ -113,6 +117,28 @@ class _Run:
         return res
 
 
+class _TrainRun(_Run):
+    """make_train_step's step from base_color * 0.4 + 0.3 toward the
+    scene's own render (cli/main.py:cmd_train's recovery)."""
+
+    def __init__(self, scene, cfg: RenderConfig, tag: str):
+        self.tag, self.cfg = tag, cfg
+        h, w = cfg.height, cfg.width
+        params, rebuild = optimize.split_trainable(scene)
+        self.cam = OrbitCamera(width=w, height=h).snapshot("cuda")
+        with torch.no_grad():
+            self.target = optimize.render_flat(rebuild(params), self.cam, cfg, h, w, 0)
+            params["materials"].base_color.mul_(0.4).add_(0.3)
+        init, self.train_step = optimize.make_train_step(
+            rebuild, cfg, h, w,
+            lambda _: torch.optim.Adam([params["materials"].base_color], lr=1e-2))
+        self.state = init(params)
+
+    def step(self):
+        self.state, loss = self.train_step(self.state, self.target, self.cam, 0)
+        return loss
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=8)
@@ -129,7 +155,8 @@ def main() -> None:
     runs = [_Run(test, dataclasses.replace(cfg, enable_svgf=False), "svgf_off"),
             _Run(test, cfg, "svgf_on"),
             _Run(test, dataclasses.replace(cfg, integrator="mis"), "mis"),
-            _Run(large, cfg, "forest_131k", radius=4.0)]
+            _Run(large, cfg, "forest_131k", radius=4.0),
+            _TrainRun(test, cfg, "train_step")]
     # all host-clock timing first: the profiler leaves Python objects behind
     walls = [run.time_frames(args.frames) for run in runs]
     off, on = [run.profile_frames(args.frames, wall, args.out)

@@ -66,7 +66,6 @@ def camera_rays(camera: Camera, height: int, width: int
     return orig, d, xx, height - 1 - yy
 
 
-@torch.no_grad()
 def render_frame(scene, camera: Camera, state: FrameState, cfg: RenderConfig,
                  height: int, width: int,
                  tracer: Tracer = KERNELS,
@@ -77,7 +76,9 @@ def render_frame(scene, camera: Camera, state: FrameState, cfg: RenderConfig,
     """Render one frame and advance the temporal state.
 
     static_camera=True takes the denoiser's static-camera specialisation
-    (motion == 0); the Renderer selects it when the view is unchanged."""
+    (motion == 0); the Renderer selects it when the view is unchanged.
+    Differentiable with enable_svgf=False, or with pallas_denoise=False
+    (K4 and K5 are forward-only and raise under grad)."""
     frame = state.frame_idx
     orig, d, px, py = camera_rays(camera, height, width)
     pt = trace_paths(scene, orig, d, px, py, frame, cfg, common_origin=True,
@@ -173,8 +174,9 @@ class Renderer:
         self.cfg = cfg
         self.device = scene.triangles.p0.device
         self.tracer = tracer
-        self.tables = pack_traversal(scene)
-        self.pk = pack_scene_tables(scene)
+        with torch.no_grad():  # serving keeps no graph, even of trainable tables
+            self.tables = pack_traversal(scene)
+            self.pk = pack_scene_tables(scene)
         self.state = FrameState.initial(cfg.height, cfg.width, self.device)
         self._prev_view_proj = np.eye(4, dtype=np.float32)  # host copy
         self.last_outputs: FrameOutputs | None = None
@@ -182,7 +184,10 @@ class Renderer:
     def reset(self) -> None:
         self.state = self.state.reset_accumulation()
 
+    @torch.no_grad()
     def step(self, camera: Camera) -> FrameOutputs:
+        """Render the next frame. Serving builds no autograd graph, whatever
+        the scene's tensors require (render_frame differentiates)."""
         view_proj = camera.view_proj.detach().cpu().numpy()
         static = bool(self.state.frame_idx > 0
                       and np.allclose(view_proj, self._prev_view_proj))

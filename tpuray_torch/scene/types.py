@@ -1,7 +1,8 @@
 """Scene model as dataclasses of torch tensors (flat SoA arrays).
 
 Counterpart of tpuray/scene/types.py: the same classes and fields, held as
-plain dataclasses instead of flax pytrees. Every class has `.to(device)`.
+plain dataclasses instead of flax pytrees. Every class has `.to(device)`
+and `.replace(**fields)` (flax's `replace`).
 The scene is this system's "weights": `scene_from_numpy` carries a scene
 built by either package (flattened to numpy by `scene_to_numpy`) onto a
 device, so both packages can render the same tree.
@@ -28,8 +29,18 @@ def _to(obj, device):
     return dataclasses.replace(obj, **kw)
 
 
+class _Fields:
+    """`.to(device)` and `.replace(**fields)` for the dataclasses below."""
+
+    def to(self, device):
+        return _to(self, device)
+
+    def replace(self, **fields):
+        return dataclasses.replace(self, **fields)
+
+
 @dataclasses.dataclass
-class MaterialTable:
+class MaterialTable(_Fields):
     """Disney BSDF parameter table, one row per material. Negative
     base_color / metallic / roughness mean "fetch from the texture stack"."""
 
@@ -52,12 +63,9 @@ class MaterialTable:
     def count(self) -> int:
         return self.subsurface.shape[0]
 
-    def to(self, device) -> "MaterialTable":
-        return _to(self, device)
-
 
 @dataclasses.dataclass
-class TriangleSoA:
+class TriangleSoA(_Fields):
     """Triangle geometry, SoA, in BVH leaf order."""
 
     p0: Tensor      # (T, 3) f32
@@ -76,12 +84,9 @@ class TriangleSoA:
     def count(self) -> int:
         return self.p0.shape[0]
 
-    def to(self, device) -> "TriangleSoA":
-        return _to(self, device)
-
 
 @dataclasses.dataclass
-class BVHSoA:
+class BVHSoA(_Fields):
     """Threaded BVH in DFS preorder with skip links (see the JAX package's
     BVHSoA): next = node + 1 on an inner-node hit, skip[node] otherwise.
     chunk_nodes/chunk_tris > 0 marks a chunked forest."""
@@ -98,12 +103,9 @@ class BVHSoA:
     def count(self) -> int:
         return self.aabb_min.shape[0]
 
-    def to(self, device) -> "BVHSoA":
-        return _to(self, device)
-
 
 @dataclasses.dataclass
-class PointLights:
+class PointLights(_Fields):
     position: Tensor  # (L, 3) f32
     radiance: Tensor  # (L, 3) f32
 
@@ -111,23 +113,17 @@ class PointLights:
     def count(self) -> int:
         return self.position.shape[0]
 
-    def to(self, device) -> "PointLights":
-        return _to(self, device)
-
 
 @dataclasses.dataclass
-class EnvMap:
+class EnvMap(_Fields):
     """Equirectangular HDR image + (inv_cdf_x, inv_cdf_y, pdf) cache."""
 
     image: Tensor  # (H, W, 3) f32
     cache: Tensor  # (H, W, 3) f32
 
-    def to(self, device) -> "EnvMap":
-        return _to(self, device)
-
 
 @dataclasses.dataclass
-class Scene:
+class Scene(_Fields):
     triangles: TriangleSoA
     bvh: BVHSoA
     materials: MaterialTable
@@ -137,12 +133,9 @@ class Scene:
     # (ROADMAP.md item 9)
     textures: Optional[Tensor] = None
 
-    def to(self, device) -> "Scene":
-        return _to(self, device)
-
 
 @dataclasses.dataclass
-class Camera:
+class Camera(_Fields):
     """Pinhole camera: primary dir = cam_to_world @ (px, py, -1)."""
 
     eye: Tensor           # (3,) f32
@@ -150,8 +143,20 @@ class Camera:
     view_proj: Tensor     # (4, 4) f32
     tan_half_fov: Tensor  # () f32
 
-    def to(self, device) -> "Camera":
-        return _to(self, device)
+    def ray_directions(self, height: int, width: int) -> Tensor:
+        """(H, W, 3) normalized world-space primary directions, row-major
+        with row 0 the top image row (tpuray/scene/types.py:210-222)."""
+        dev = self.eye.device
+        th = self.tan_half_fov
+        xs = 2.0 * (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) / width - 1.0
+        ys = -(2.0 * (torch.arange(height, dtype=torch.float32, device=dev) + 0.5)
+               / height - 1.0)
+        px, py = torch.meshgrid(xs * th, ys * th, indexing="xy")
+        c = self.cam_to_world
+        # cam_to_world @ (px, py, -1), written out elementwise
+        d = torch.stack([c[i, 0] * px + c[i, 1] * py + c[i, 2] * -1.0
+                         for i in range(3)], dim=-1)
+        return d / torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True))
 
 
 _GROUPS = {
