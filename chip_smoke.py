@@ -3,11 +3,15 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from csrc/ with nvcc (one process per source), then:
+Builds the CUDA kernels from csrc/ with nvcc (one process per source) and
+prints each kernel's registers, stack frame and spill stores (ptxas -v),
+then:
   1. K1 (trace_packets) on the 640,000 camera primaries of an 800x800 frame
      of the 20,482-triangle test scene, against its plain PyTorch version;
   2. K2 (trace_multi) on that frame's bounce-0 classes (bounce ray, env
-     shadow, point shadow), against its plain version;
+     shadow, point shadow), against its plain version, then each class
+     against K3 (trace_batched) on that class alone, with the three K3
+     times beside K2's;
   3. K4 (reproject_variance_fused) on the denoiser's inputs of the 5th frame
      of a moving 800x800 Renderer, against its plain version;
   4. K5 (atrous_chain, 5 iterations) on K4's output, against its plain
@@ -24,8 +28,9 @@ Builds the CUDA kernels from csrc/ with nvcc (one process per source), then:
      inputs, the median of 10;
   8. K6 (trace_chunked) on the 131k-triangle forest (make_large_scene(25
      spheres, subdiv 4): 128,002 triangles in 16 chunks): the 640,000
-     primaries of an 800x800 frame and that frame's bounce-0 classes (env
-     shadow, point shadow, bounce ray), against its plain version;
+     primaries of an 800x800 frame and the frame's other five walks
+     (bounce-0 env shadow, point shadow and bounce ray, bounce-1 env and
+     point shadow), each against its plain version and timed;
   9. K6 on the 524k-triangle forest (subdiv 5: 512,002 triangles in 64
      chunks): the primaries and the bounce-0 bounce rays;
  10. slice 3's main path: the 131k forest under the slice config, 2 warm-up
@@ -64,6 +69,7 @@ Needs no network and no jax. Exits non-zero without a CUDA device.
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -76,7 +82,6 @@ from tpuray_torch.denoise.svgf import svgf_pipeline
 from tpuray_torch.integrator import path_tracer as pt
 from tpuray_torch.integrator.gather_tables import fetch_tri, pack_scene_tables
 from tpuray_torch.integrator.intersect import INF
-from tpuray_torch.integrator.path_tracer import trace_paths
 from tpuray_torch.kernels import atrous as ka
 from tpuray_torch.kernels import build
 from tpuray_torch.kernels import gather as kg
@@ -89,6 +94,7 @@ from tpuray_torch.scene.camera import OrbitCamera
 from tpuray_torch.scene.config import RenderConfig
 from tpuray_torch.scene.procedural import make_large_scene, make_test_scene
 from tpuray_torch.train import optimize
+from tpuray_torch.traversal_times import kernel_ms, recorded_calls
 
 H = W = 800
 # slice 2: the default view (SVGF + TAA on) without compaction (item 10)
@@ -132,19 +138,6 @@ class ChainOut(NamedTuple):  # K5's outputs, for check_fields
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def kernel_ms(fn, reps: int = KERNEL_REPS) -> float:
-    """Mean device time of fn() over reps launches, after 3 warm-ups."""
-    for _ in range(3):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def median_ms(fn, reps: int = KERNEL_REPS) -> float:
@@ -196,7 +189,7 @@ def launches() -> dict:
 
 
 def check_closest(name, t, i, t_p, i_p):
-    """idx equal but for exact-t ties; t bit-equal (so within rtol 1e-6)."""
+    """idx equal but for exact-t ties; t bit-equal."""
     n = i.numel()
     diff = i != i_p
     n_diff = int(diff.sum())
@@ -210,8 +203,8 @@ def check_closest(name, t, i, t_p, i_p):
         raise AssertionError(f"{name}: {n_diff - n_tie} idx mismatches are not t ties")
     if n_diff > MAX_MISMATCH * n:
         raise AssertionError(f"{name}: {n_diff} idx mismatches > {MAX_MISMATCH:.2%}")
-    if rel > 1e-6:
-        raise AssertionError(f"{name}: t differs by rtol {rel:.3g} > 1e-6")
+    if not torch.equal(t, t_p):
+        raise AssertionError(f"{name}: t is not bit-equal (max rel {rel:.3g})")
     return err
 
 
@@ -300,41 +293,48 @@ def moving_renderer(scene, cfg, frames: int, tracer=pt.KERNELS, **cam_kw):
     return r, cam, out, state, rec.inputs
 
 
-def _clone(x):
-    if isinstance(x, torch.Tensor):
-        return x.clone()
-    if isinstance(x, (list, tuple)):
-        return type(x)(_clone(v) for v in x)
-    return x
-
-
-def recorded_calls(scene, cfg, tables, rays) -> list:
-    """Every traversal call one frame of trace_paths makes, in order, as
-    (tracer entry, cloned positional args, keyword args), each passed on to
-    the kernels."""
-    calls = []
-
-    def recording(name):
-        fn = getattr(pt.KERNELS, name)
-
-        def call(*a, **k):
-            calls.append((name, _clone(a), dict(k)))
-            return fn(*a, **k)
-        return call
-
-    tracer = pt.Tracer(**{f.name: recording(f.name)
-                          for f in dataclasses.fields(pt.Tracer)})
-    orig, d, px, py = rays
-    trace_paths(scene, orig, d, px, py, 0, cfg, common_origin=True,
-                tracer=tracer, tables=tables)
-    return calls
-
-
 def trace_bound(tables, stats, *tensors):
     """K1/K3/K6's bound: the tables and the rays' bytes once, and the box
     and triangle tests these rays needed (the plain walk's count)."""
     return bound(nbytes(tables.meta, tables.aabb, tables.tverts, *tensors),
                  stats["box_tests"] * BOX_OPS + stats["tri_tests"] * TRI_OPS)
+
+
+def ptxas_summary(text: str) -> dict:
+    """{kernel: (registers, stack-frame bytes, spill-store bytes)} from the
+    build's `-Xptxas -v` report; names demangled as `trace_k2<3>`."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = _demangle(m.group(1))
+            out[cur] = [0, 0, 0]
+        elif cur and "bytes stack frame" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            out[cur][1], out[cur][2] = nums[0], nums[1]
+        elif cur and (m := re.search(r"Used (\d+) registers", line)):
+            out[cur][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def _demangle(name: str) -> str:
+    """`_ZN<n>_GLOBAL__N_<file hash>8trace_k2ILi3EEEv...` -> `trace_k2<3>`
+    (kernels in an anonymous namespace with bool / int template
+    arguments)."""
+    m = re.match(r"_ZN(\d+)", name)
+    if not m or "_GLOBAL__N_" not in name:
+        return name
+    rest = name[m.end() + int(m.group(1)):]
+    m = re.match(r"(\d+)", rest)
+    if not m:
+        return name
+    n = int(m.group(1))
+    base, rest = rest[m.end():m.end() + n], rest[m.end() + n:]
+    if not rest.startswith("I"):
+        return base
+    args = re.findall(r"L([bi])(\d+)E", rest[:rest.find("EE") + 2])
+    vals = [("true" if v == "1" else "false") if k == "b" else v for k, v in args]
+    return f"{base}<{', '.join(vals)}>"
 
 
 def check_class(name, kernel, plain, tables, args, any_hit, reps=KERNEL_REPS):
@@ -359,6 +359,26 @@ def check_class(name, kernel, plain, tables, args, any_hit, reps=KERNEL_REPS):
         f"of {n}), plain {plain_ms:.1f} ms; work {work}; bound {b[0]:.4f} ms "
         f"by {b[1]}")
     return err, ms, plain_ms, b
+
+
+def phase_k2_vs_k3(tables, orig, dirs, tms, ah, got, k2_ms) -> None:
+    """2b. K2 against one K3 (trace_batched) walk per class on the same
+    rays: each class's result, and the three walks' times beside K2's."""
+    names = ("bounce ray", "env shadow", "point shadow")
+    per_class = []
+    for c, name in enumerate(names[:len(dirs)]):
+        t3, i3 = kt.trace_batched(tables, orig, dirs[c], tms[c], ah[c])
+        if ah[c]:
+            check_any(f"K2 {name} vs K3 alone", got[c][1], i3)
+        else:
+            check_closest(f"K2 {name} vs K3 alone", got[c][0], got[c][1], t3, i3)
+        per_class.append(kernel_ms(lambda c=c: kt.trace_batched(
+            tables, orig, dirs[c], tms[c], ah[c])))
+    all3 = kernel_ms(lambda: [kt.trace_batched(tables, orig, dirs[c], tms[c], ah[c])
+                              for c in range(len(dirs))])
+    log(f"K2 vs K3 per class, bounce 0: K2 {k2_ms:.4f} ms; K3 "
+        + " + ".join(f"{n} {ms:.4f}" for n, ms in zip(names, per_class))
+        + f" = {sum(per_class):.4f} ms (back to back {all3:.4f} ms)")
 
 
 def timed_frames(r, cam, frames: int) -> tuple[list, dict, object]:
@@ -594,9 +614,10 @@ def main() -> None:
     how = (f"nvcc {build.build_seconds:.2f} s" if build.build_log
            else "already built from these sources")
     log(f"build: {time.perf_counter() - t0:.2f} s ({how}) -> {build.library_path()}")
-    for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"  ptxas: {line.strip()}")
+    report = build.build_log or (build.library_path().parent / "build.log").read_text()
+    for kernel, (regs, stack, spill) in ptxas_summary(report).items():
+        log(f"  ptxas: {kernel}: {regs} registers, {stack} bytes stack frame, "
+            f"{spill} bytes spill stores")
 
     # ---- scene
     t0 = time.perf_counter()
@@ -646,6 +667,7 @@ def main() -> None:
     log(f"K2: kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.1f} ms "
         f"(live lanes {int((tms[0] > 0).sum())} of {o2.shape[0]}); work {work}; "
         f"bound {k2_bound[0]:.4f} ms by {k2_bound[1]}")
+    phase_k2_vs_k3(tables, o2, dirs, tms, ah, got, k2_ms)
 
     # ---- 3. K4 on the denoiser's inputs of the 5th moving frame
     _, _, _, _, k4_in = moving_renderer(scene, SLICE, 5)
@@ -793,7 +815,8 @@ def main() -> None:
         f"({large.bvh.chunk_tris} a chunk), {forest.n_chunks} chunks of "
         f"{forest.chunk_nodes} node rows, host build {host_s:.2f} s, pack + "
         f"upload {time.perf_counter() - t0 - host_s:.2f} s, tables "
-        f"{nbytes(forest.meta, forest.aabb, forest.tverts) / 1e6:.2f} MB")
+        f"{nbytes(forest.meta, forest.aabb, forest.tverts) / 1e6:.2f} MB, records "
+        f"{nbytes(forest.nodes, forest.tris) / 1e6:.2f} MB")
     cam_l = OrbitCamera(width=W, height=H, **LARGE_CAM).snapshot(dev)
     rays_l = camera_rays(cam_l, H, W)
     calls = recorded_calls(large, SLICE, forest, rays_l)
@@ -802,12 +825,17 @@ def main() -> None:
     k6_err, k6_ms, k6_plain_ms, k6_bound = check_class(
         "K6 131k primaries", ktc.trace_chunked, ktc.trace_chunked_plain, forest,
         (rays_l[0][:1], rays_l[1], INF, False, True), any_hit=False)
-    for (_, args, _), what in zip(calls[1:4], ("env shadow", "point shadow",
-                                               "bounce ray")):
-        err, *_ = check_class(f"K6 131k bounce-0 {what}", ktc.trace_chunked,
-                              ktc.trace_chunked_plain, forest, args[1:],
-                              any_hit=args[4])
+    walk_ms = {"primaries": k6_ms}
+    for (_, args, _), what in zip(calls[1:], ("bounce-0 env shadow", "bounce-0 point shadow",
+                                              "bounce-0 bounce ray", "bounce-1 env shadow",
+                                              "bounce-1 point shadow")):
+        err, walk_ms[what], *_ = check_class(
+            f"K6 131k {what}", ktc.trace_chunked, ktc.trace_chunked_plain, forest,
+            args[1:], any_hit=args[4])
         k6_err = max(k6_err, err)
+    log("K6 131k, the frame's six walks: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in walk_ms.items())
+        + f"; sum {sum(walk_ms.values()):.4f} ms")
 
     # ---- 9. K6 on the 524k forest: primaries and the bounce-0 bounce rays
     t0 = time.perf_counter()
@@ -818,13 +846,17 @@ def main() -> None:
     log(f"scene 524k: {huge.triangles.count} triangle rows, {forest_h.n_chunks} "
         f"chunks of {forest_h.chunk_nodes} node rows, host build {host_s:.2f} s, "
         f"pack + upload {time.perf_counter() - t0 - host_s:.2f} s, tables "
-        f"{nbytes(forest_h.meta, forest_h.aabb, forest_h.tverts) / 1e6:.2f} MB")
-    check_class("K6 524k primaries", ktc.trace_chunked, ktc.trace_chunked_plain,
-                forest_h, (rays_l[0][:1], rays_l[1], INF, False, True),
-                any_hit=False)
+        f"{nbytes(forest_h.meta, forest_h.aabb, forest_h.tverts) / 1e6:.2f} MB, records "
+        f"{nbytes(forest_h.nodes, forest_h.tris) / 1e6:.2f} MB")
+    _, k6h_prim_ms, *_ = check_class(
+        "K6 524k primaries", ktc.trace_chunked, ktc.trace_chunked_plain, forest_h,
+        (rays_l[0][:1], rays_l[1], INF, False, True), any_hit=False)
     calls_h = recorded_calls(huge, SLICE, forest_h, rays_l)
-    check_class("K6 524k bounce-0 bounce ray", ktc.trace_chunked,
-                ktc.trace_chunked_plain, forest_h, calls_h[3][1][1:], any_hit=False)
+    _, k6h_bounce_ms, *_ = check_class(
+        "K6 524k bounce-0 bounce ray", ktc.trace_chunked, ktc.trace_chunked_plain,
+        forest_h, calls_h[3][1][1:], any_hit=False)
+    log(f"K6 524k: primaries {k6h_prim_ms:.4f} ms, bounce-0 bounce ray "
+        f"{k6h_bounce_ms:.4f} ms")
     del huge, forest_h, calls_h
 
     # ---- 10. slice 3's main path: moving SVGF frames on the 131k forest

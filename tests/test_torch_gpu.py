@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
-K1 (shared-origin primaries), K2 (fused bounce classes), K3 (per-ray
-origins), K4 and K5 (the denoiser), K6 (a chunked forest), K7 (the one-hot
+K1 (shared-origin primaries), K2 (fused bounce classes, and each class
+against K3 on that class alone), K3 (per-ray origins), K4 and K5 (the
+denoiser), K6 (chunked forests of 8 and 128 chunks), K7 (the one-hot
 hi/lo gather), frames of every path through them, and a train step's
 gradients through the traversal kernels against the plain tracer's.
 
@@ -54,6 +55,17 @@ def cuda_forest():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     scene = make_large_scene(n_spheres=8, subdiv=3, max_chunk_tris=2048,
+                             env_width=64, device="cuda")
+    return scene, pack_traversal(scene)
+
+
+@pytest.fixture(scope="module")
+def cuda_forest_64():
+    """cuda_forest's geometry in 128 chunks (>= 64, as the 524k forest
+    has): a top-level tree 7 levels deep."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    scene = make_large_scene(n_spheres=8, subdiv=3, max_chunk_tris=128,
                              env_width=64, device="cuda")
     return scene, pack_traversal(scene)
 
@@ -141,6 +153,36 @@ def test_k2_matches_plain(cuda_scene, ah):
             _assert_closest(got[c][0], got[c][1], ref[c][0], ref[c][1])
 
 
+@pytest.mark.parametrize("ah", [(False, True, True), (True, True), (False,)])
+def test_k2_classes_equal_k3_alone(cuda_scene, ah):
+    """K2 runs one thread per (ray, class) with K1's walk: each class is
+    the trace_batched (K3) of that class alone, t and idx equal for a
+    closest-hit class, hit/miss for an any-hit one."""
+    _, tables = cuda_scene
+    n = 65_536 + 77
+    rng = np.random.default_rng(16)
+    o, d_b = _rays(16, n)
+    d_e = rng.standard_normal((n, 3)).astype(np.float32)
+    d_e /= np.linalg.norm(d_e, axis=-1, keepdims=True)
+    d_p = -d_e + 0.3
+    d_p /= np.linalg.norm(d_p, axis=-1, keepdims=True)
+    live = np.arange(n) % 3 != 0
+    tms = {False: np.where(live, 1e30, 0.0), True: np.where(live, 1.5, 0.0)}
+    dirs = [d_b, d_e, d_p][3 - len(ah):] if ah[0] else [d_b, d_e, d_p][:len(ah)]
+    og = _cuda(o)[0]
+    dg = _cuda(*dirs)
+    tmg = _cuda(*[tms[a].astype(np.float32) for a in ah])
+    got = kt.trace_multi(tables, og, dg, tmg, ah)
+    for c, any_hit in enumerate(ah):
+        t3, i3 = kt.trace_batched(tables, og, dg[c], tmg[c], any_hit)
+        torch.cuda.synchronize()
+        if any_hit:
+            assert torch.equal(got[c][1] >= 0, i3 >= 0)
+        else:
+            assert torch.equal(got[c][0], t3) and torch.equal(got[c][1], i3)
+        assert float((i3 >= 0).float().mean()) > 0.05
+
+
 def test_wrappers_check_their_inputs(cuda_scene, cuda_forest):
     _, tables = cuda_scene
     _, forest = cuda_forest
@@ -165,7 +207,20 @@ def test_wrappers_check_their_inputs(cuda_scene, cuda_forest):
 @pytest.mark.parametrize("any_hit", [False, True])
 @pytest.mark.parametrize("common_origin", [False, True])
 def test_k6_matches_plain(cuda_forest, any_hit, common_origin):
-    _, tables = cuda_forest
+    _check_k6(cuda_forest[1], any_hit, common_origin)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("common_origin", [False, True])
+def test_k6_many_chunks_matches_plain(cuda_forest_64, any_hit, common_origin):
+    tables = cuda_forest_64[1]
+    assert tables.n_chunks >= 64
+    _check_k6(tables, any_hit, common_origin)
+
+
+def _check_k6(tables, any_hit, common_origin):
+    """K6 against its plain version: per-ray origins among the spheres or a
+    camera-like shared one, dead lanes, closest or any hit."""
     n = 65_536 + 77
     rng = np.random.default_rng(14)
     o = np.tile(np.asarray([[0.4, 0.6, 3.5]], np.float32), (n, 1))

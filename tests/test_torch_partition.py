@@ -12,6 +12,8 @@ may contract n.o and n.d into FMAs; where n.o nearly cancels n.p0 that
 moves t by a few ulps of the plane offset, an absolute error that a short
 t feels as a relative one; as in tests/test_torch_trace_kernels.py);
 any-hit hit/miss exact."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -239,10 +241,8 @@ def test_stats_skip_padding_nodes(large):
     all_boxes = {}
     inverted = tables.aabb[0] > tables.aabb[3]
     assert bool(inverted.any())
-    fake = kt.TraceTables(meta=tables.meta, aabb=torch.where(
-        inverted[None], 0.0, tables.aabb), tverts=tables.tverts,
-        skip=tables.skip, chunk_nodes=tables.chunk_nodes,
-        chunk_tris=tables.chunk_tris)
+    fake = dataclasses.replace(tables, aabb=torch.where(
+        inverted[None], 0.0, tables.aabb))
     # same walk with the padding boxes made real (all-zero): more box tests
     ktc.trace_chunked_plain(fake, torch.from_numpy(o), torch.from_numpy(d),
                             1e30, stats=all_boxes)

@@ -35,14 +35,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "tpuray_trace_packets": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
-                             _I, _I, _P],
-    "tpuray_trace_batched": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
-                             _I, _I, _P],
-    "tpuray_trace_chunked": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _P],
-    "tpuray_trace_multi": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                           _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "tpuray_trace_packets": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P],
+    "tpuray_trace_batched": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P],
+    "tpuray_trace_chunked": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _P],
+    "tpuray_trace_multi": [_P, _P, _P, _I, _P] + [_P] * 12 + [_I, _I, _I, _P],
     "tpuray_reproject_variance": [_P] * 20 + [_I, _I, _F, _F, _F, _F, _F, _I,
                                               _F, _I, _P],
     "tpuray_atrous_step": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _I, _P],

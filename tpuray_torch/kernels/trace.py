@@ -38,6 +38,7 @@ Tensor = torch.Tensor
 
 MAX_STACK = 128  # per-thread DFS stack in the kernels; checked at pack time
 MAX_LEAF = 8     # builder leaf size; checked at pack time
+LEAF_BITS = 4    # a leaf ref packs its count (<= MAX_LEAF) in this many bits
 
 # kernel launches since the last reset (the plain path never counts)
 LAUNCHES = {"k1": 0, "k2": 0, "k3": 0}
@@ -51,13 +52,19 @@ def reset_launches() -> None:
 @dataclasses.dataclass(frozen=True)
 class TraceTables:
     """The kernels' scene operands (pack_scene, or trace_chunked.pack_forest
-    for a forest), plus the skip links that only the plain wavefront reads.
-    Indices are global: first_tri and right point into the whole tables."""
+    for a forest). The plain versions read the SoA rows (meta, aabb, tverts
+    and the skip links); the kernels read the packed records (nodes, tris,
+    root_box, root; csrc/trace_common.cuh). Indices are global: first_tri,
+    right and every ref point into the whole tables."""
 
     meta: Tensor    # (5, n_nodes) int32 [first_tri; tri_count; right; axis; left_low]
     aabb: Tensor    # (6, n_nodes) f32 [amin xyz; amax xyz]
     tverts: Tensor  # (12, T) f32 [n xyz; n.p0; T1 xyz; t1w; T2 xyz; t2w]
     skip: Tensor    # (n_nodes,) int32
+    nodes: Tensor   # (R >= n_nodes, 16) int32 bits: one 64-byte record per inner node row
+    tris: Tensor    # (T, 12) f32: tverts.T, one 48-byte record per triangle
+    root_box: Tensor  # (6,) f32: the walk's root box, min xyz, max xyz
+    root: int       # the walk's root ref (leaf_ref(...) when the root is a leaf)
     chunk_nodes: int = 0  # > 0: a uniform forest of chunks this many nodes long
     chunk_tris: int = 0
 
@@ -108,23 +115,62 @@ def _check_tree(skip: np.ndarray, count: np.ndarray) -> None:
             f"BVH depth {depth.max()} overflows the kernels' stack {MAX_STACK}")
 
 
+def split_axis(lc: Tensor, rc: Tensor) -> tuple[Tensor, Tensor]:
+    """(axis, left_low) of inner nodes whose children's box centres are lc
+    and rc (..., 3): the axis of their largest separation, and whether the
+    left child lies low on it (the kernels' near-first child order)."""
+    axis = torch.argmax(torch.abs(rc - lc), dim=-1)
+    pick = lambda c: torch.gather(c, -1, axis[..., None])[..., 0]
+    return axis, pick(lc) <= pick(rc)
+
+
+def leaf_ref(first, count):
+    """A child ref naming a leaf: ~(first_tri << LEAF_BITS | tri_count)."""
+    return ~((first << LEAF_BITS) | count)
+
+
+def node_records(meta: Tensor, aabb: Tensor) -> Tensor:
+    """(n_nodes, 16) int32: the record of each inner node row
+    (csrc/trace_common.cuh): its children's boxes as f32 bits
+    [L.min.x, L.max.x, L.min.y, L.max.y, R.min.x, R.max.x, R.min.y,
+    R.max.y, L.min.z, L.max.z, R.min.z, R.max.z], then its left and right
+    child refs (an inner child's row, or leaf_ref), axis and left_low.
+    Leaf and padding rows are zero and never read."""
+    first, count, right, axis, left_low = meta.long()
+    n = count.shape[0]
+    left = torch.clamp_max(torch.arange(n, device=meta.device) + 1, n - 1)
+    right = torch.clamp(right, 0, n - 1)
+    lo, hi = aabb[0:3], aabb[3:6]
+    boxes = torch.stack([lo[0][left], hi[0][left], lo[1][left], hi[1][left],
+                         lo[0][right], hi[0][right], lo[1][right], hi[1][right],
+                         lo[2][left], hi[2][left], lo[2][right], hi[2][right]], 1)
+
+    def ref(c):
+        return torch.where(count[c] > 0, leaf_ref(first[c], count[c]), c)
+
+    links = torch.stack([ref(left), ref(right), axis, left_low], 1)
+    rec = torch.cat([boxes.view(torch.int32), links.to(torch.int32)], 1)
+    inner = (count == 0) & (aabb[0] <= aabb[3])  # padding boxes are inverted
+    return torch.where(inner[:, None], rec, 0).contiguous()
+
+
 def pack_tables(bvh, tri) -> TraceTables:
-    """The SoA scene in the kernels' operand layout, on its device, with no
-    checks (pack_scene and trace_chunked.pack_forest check their trees).
+    """The scene in the kernels' operand layout, on its device, with no
+    tree checks (pack_scene and trace_chunked.pack_forest check their
+    trees): the SoA rows and the records, rooted at node 0.
 
     right_child of inner node i = skip[i + 1]; split_axis / left_is_low
     drive near-first child order."""
     skip, count = bvh.skip.long(), bvh.tri_count.long()
     n_nodes = skip.shape[0]
+    if tri.count >= 1 << (31 - LEAF_BITS):
+        raise ValueError(f"{tri.count} triangles overflow a leaf ref")
     left = torch.arange(n_nodes, device=skip.device) + 1
     clip_l = torch.clamp_max(left, n_nodes - 1)
     right = torch.where(count == 0, skip[clip_l], 0)
     center = 0.5 * (bvh.aabb_min + bvh.aabb_max)
-    lc = center[clip_l]
-    rc = center[torch.clamp_max(right, n_nodes - 1)]
-    axis = torch.argmax(torch.abs(rc - lc), dim=-1)
-    left_low = (torch.gather(lc, 1, axis[:, None])
-                <= torch.gather(rc, 1, axis[:, None]))[:, 0]
+    axis, left_low = split_axis(center[clip_l],
+                                center[torch.clamp_max(right, n_nodes - 1)])
     meta = torch.stack([bvh.first_tri.long(), count, right, axis,
                         left_low.long()]).to(torch.int32).contiguous()
     aabb = torch.cat([bvh.aabb_min.T, bvh.aabb_max.T]).contiguous()
@@ -132,8 +178,13 @@ def pack_tables(bvh, tri) -> TraceTables:
     tverts = torch.cat([tc["n"].T, tc["np0"][None], tc["t1"].T,
                         tc["t1w"][None], tc["t2"].T,
                         tc["t2w"][None]]).contiguous()
+    c0, f0 = int(count[0]), int(bvh.first_tri[0])
     return TraceTables(meta=meta, aabb=aabb, tverts=tverts,
-                       skip=bvh.skip.to(torch.int32).contiguous())
+                       skip=bvh.skip.to(torch.int32).contiguous(),
+                       nodes=node_records(meta, aabb),
+                       tris=tverts.T.contiguous(),
+                       root_box=aabb[:, 0].contiguous(),
+                       root=leaf_ref(f0, c0) if c0 else 0)
 
 
 def pack_scene(bvh, tri) -> TraceTables:
@@ -196,6 +247,17 @@ def _check_tables(tables: TraceTables, device: torch.device,
     build.check(tables.meta, "meta", torch.int32, (5, nn), device)
     build.check(tables.aabb, "aabb", torch.float32, (6, nn), device)
     build.check(tables.tverts, "tverts", torch.float32, (12, nt), device)
+    build.check(tables.nodes, "nodes", torch.int32,
+                (max(nn, tables.nodes.shape[0]), 16), device)
+    build.check(tables.tris, "tris", torch.float32, (nt, 12), device)
+    build.check(tables.root_box, "root_box", torch.float32, (6,), device)
+
+
+def record_args(tables: TraceTables) -> tuple:
+    """The traversal kernels' scene arguments (K1-K3 here, K6 in
+    trace_chunked.py): nodes, tris, root_box, root."""
+    return (tables.nodes.data_ptr(), tables.tris.data_ptr(),
+            tables.root_box.data_ptr(), tables.root)
 
 
 def _ptr(x: Tensor | None):
@@ -218,10 +280,9 @@ def _launch_single(entry: str, key: str, tables: TraceTables, orig: Tensor,
         return t_out, idx_out
     with torch.cuda.device(dev):
         rc = getattr(build.load(), entry)(
-            tables.meta.data_ptr(), tables.aabb.data_ptr(),
-            tables.tverts.data_ptr(), tables.n_nodes, tables.n_tris,
-            orig.data_ptr(), d.data_ptr(), t_max.data_ptr(), t_out.data_ptr(),
-            idx_out.data_ptr(), n, int(any_hit),
+            *record_args(tables), orig.data_ptr(), d.data_ptr(),
+            t_max.data_ptr(), t_out.data_ptr(), idx_out.data_ptr(), n,
+            int(any_hit),
             torch.cuda.current_stream(dev).cuda_stream)
     build.raise_on(rc, f"{entry} ({key.upper()})")
     LAUNCHES[key] += 1
@@ -270,12 +331,13 @@ def trace_batched(tables: TraceTables, orig: Tensor, d: Tensor,
 def trace_multi(tables: TraceTables, orig: Tensor, dirs: Sequence[Tensor],
                 t_maxs: Sequence[Tensor], any_hits: Sequence[bool]
                 ) -> list[tuple[Tensor, Tensor]]:
-    """K2: M <= 3 ray classes from shared per-ray origins in one walk.
+    """K2: M <= 3 ray classes from shared per-ray origins in one launch.
 
     orig (N, 3); dirs[c] (N, 3); t_maxs[c] (N,) (<= 0: dead in class c);
     any_hits[c] selects any-hit for class c. Returns [(t, idx)] per class,
-    each equal to its own single-class trace (any-hit: up to which
-    triangle is reported)."""
+    each equal to its own single-class trace: on the card, K1's walk in
+    one thread per (ray, class), so each class equals trace_batched of that
+    class alone."""
     m = len(dirs)
     if not (1 <= m <= 3 and len(t_maxs) == m and len(any_hits) == m):
         raise ValueError(f"trace_multi takes 1..3 classes, got {m}")
@@ -298,9 +360,7 @@ def trace_multi(tables: TraceTables, orig: Tensor, dirs: Sequence[Tensor],
     mask = sum(1 << c for c in range(m) if any_hits[c])
     with torch.cuda.device(dev):
         rc = build.load().tpuray_trace_multi(
-            tables.meta.data_ptr(), tables.aabb.data_ptr(),
-            tables.tverts.data_ptr(), tables.n_nodes, tables.n_tris,
-            orig.data_ptr(),
+            *record_args(tables), orig.data_ptr(),
             *[_ptr(x) for x in list(dirs) + pad],
             *[_ptr(x) for x in t_maxs + pad],
             *[_ptr(x) for x in [t for t, _ in outs] + pad],

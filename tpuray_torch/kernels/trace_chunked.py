@@ -14,7 +14,11 @@ csrc/trace_chunked.cu (see its header for the design); the wrapper
 The forest layout is scene/partition.py:build_forest_bvh_uniform's: chunk
 c owns node rows [c*CN, (c+1)*CN) and triangle rows [c*CT, (c+1)*CT), with
 global indices. pack_forest keeps them global (kernels/trace.py:
-pack_tables), so a hit's idx is the forest-wide triangle row.
+pack_tables), so a hit's idx is the forest-wide triangle row, and appends
+the inner records of a top-level tree over the chunk roots' boxes
+(top_level_tree) after the forest's rows: the kernel walks the forest as
+one tree from the top-level root. The forest's own rows, indices and
+padding stay as partition.py lays them out.
 
 Like K1-K3, both entries run under torch.no_grad: topology only, as the
 JAX package's zero-tangent custom_jvp (tpuray/kernels/trace_chunked.py:
@@ -23,6 +27,7 @@ JAX package's zero-tangent custom_jvp (tpuray/kernels/trace_chunked.py:
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -32,7 +37,7 @@ from tpuray_torch.kernels import trace as kt
 
 Tensor = torch.Tensor
 
-MAX_CHUNKS = 256  # the kernel's per-thread list of entered chunks
+MAX_CHUNKS = 256  # leaves of the top-level tree over the chunk roots
 
 # kernel launches since the last reset (the plain path never counts)
 LAUNCHES = {"k6": 0}
@@ -43,14 +48,14 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _check_forest(skip: np.ndarray, count: np.ndarray, chunk_nodes: int
-                  ) -> None:
+def _check_forest(skip: np.ndarray, count: np.ndarray, chunk_nodes: int,
+                  top_depth: int = 0) -> None:
     """Host-side bounds the kernel relies on, chunk by chunk (raises, so
     `python -O` keeps them): leaf size, a tree reached from the chunk root
     that stays inside its chunk's rows, and a DFS stack that fits
     MAX_STACK in any child order (tpuray/kernels/trace_chunked.py:267-283
     checks the JAX package's left-first order; the depth bound covers the
-    kernel's near-first order)."""
+    kernel's near-first order) below a top-level tree top_depth deep."""
     if count.max() > kt.MAX_LEAF:
         raise ValueError(f"leaf count {count.max()} > MAX_LEAF={kt.MAX_LEAF}")
     n_nodes = skip.shape[0]
@@ -75,11 +80,65 @@ def _check_forest(skip: np.ndarray, count: np.ndarray, chunk_nodes: int
         if max_sp >= kt.MAX_STACK or max_depth + 2 > kt.MAX_STACK:
             raise ValueError(f"chunk {c}: BVH needs stack {max_sp} (depth "
                              f"{max_depth}) >= {kt.MAX_STACK}")
+        if top_depth + max_depth + 2 > kt.MAX_STACK:
+            raise ValueError(
+                f"chunk {c}: top-level depth {top_depth} + chunk depth "
+                f"{max_depth} + 2 overflows the kernel's stack {kt.MAX_STACK}")
+
+
+class TopLevel(NamedTuple):
+    records: np.ndarray   # (n_chunks - 1, 16) int32, rows base, base + 1, ...
+    root: int             # the top-level root's ref
+    root_box: np.ndarray  # (6,) f32: min xyz, max xyz of every chunk root
+    depth: int            # of the deepest chunk root below the root
+
+
+def top_level_tree(lo: np.ndarray, hi: np.ndarray, refs: np.ndarray,
+                   base: int) -> TopLevel:
+    """A BVH2 over the chunk roots' boxes lo, hi (C, 3) f32, whose leaves
+    are the chunk roots' refs (C,): median split on the widest axis of the
+    box centres (as partition.partition_triangles splits triangles), inner
+    records in preorder from row `base` in node_records' layout, with the
+    child order of pack_tables (trace.split_axis). Boxes are exact unions,
+    so a top-level box contains every box below it under the slab test's
+    rounding too."""
+    records: list = []
+
+    def build(items: np.ndarray, depth: int):
+        if len(items) == 1:
+            c = int(items[0])
+            return int(refs[c]), lo[c], hi[c], depth
+        cen = 0.5 * (lo[items] + hi[items])
+        axis = int(np.argmax(cen.max(0) - cen.min(0)))
+        order = items[np.argsort(cen[:, axis], kind="stable")]
+        row = len(records)
+        records.append(None)
+        half = len(order) // 2
+        (lr, llo, lhi, ld), (rr, rlo, rhi, rd) = (build(order[:half], depth + 1),
+                                                  build(order[half:], depth + 1))
+        ax, left_low = kt.split_axis(torch.from_numpy(0.5 * (llo + lhi)),
+                                     torch.from_numpy(0.5 * (rlo + rhi)))
+        boxes = np.asarray([llo[0], lhi[0], llo[1], lhi[1], rlo[0], rhi[0],
+                            rlo[1], rhi[1], llo[2], lhi[2], rlo[2], rhi[2]],
+                           np.float32)
+        records[row] = np.concatenate([
+            boxes.view(np.int32),
+            np.asarray([lr, rr, int(ax), int(left_low)], np.int32)])
+        return (base + row, np.minimum(llo, rlo), np.maximum(lhi, rhi),
+                max(ld, rd))
+
+    root, rlo, rhi, depth = build(np.arange(len(refs)), 0)
+    rec = (np.stack(records) if records
+           else np.zeros((0, 16), np.int32))
+    return TopLevel(rec, root, np.concatenate([rlo, rhi]).astype(np.float32),
+                    depth)
 
 
 def pack_forest(bvh, tri) -> kt.TraceTables:
     """Check a uniform forest (BVHSoA with chunk_nodes / chunk_tris) and
-    pack it into the kernels' operand layout, on its device."""
+    pack it into the kernels' operand layout, on its device: the forest's
+    rows (kernels/trace.py:pack_tables) and its top-level tree's records
+    after them, rooted at the top-level root."""
     cn, ct = int(bvh.chunk_nodes), int(bvh.chunk_tris)
     n_nodes, n_tris = bvh.count, tri.count
     if cn <= 0 or ct <= 0:
@@ -92,9 +151,21 @@ def pack_forest(bvh, tri) -> kt.TraceTables:
                          f"whole chunks of {cn} / {ct}")
     if n_chunks > MAX_CHUNKS:
         raise ValueError(f"{n_chunks} chunks > MAX_CHUNKS={MAX_CHUNKS}")
-    _check_forest(bvh.skip.cpu().numpy(), bvh.tri_count.cpu().numpy(), cn)
-    return dataclasses.replace(kt.pack_tables(bvh, tri), chunk_nodes=cn,
-                               chunk_tris=ct)
+    roots = np.arange(n_chunks) * cn
+    count = bvh.tri_count.cpu().numpy()
+    first = bvh.first_tri.cpu().numpy()
+    refs = np.where(count[roots] > 0,
+                    kt.leaf_ref(first[roots].astype(np.int64),
+                                count[roots].astype(np.int64)), roots)
+    top = top_level_tree(bvh.aabb_min[roots].cpu().numpy(),
+                         bvh.aabb_max[roots].cpu().numpy(), refs, n_nodes)
+    _check_forest(bvh.skip.cpu().numpy(), count, cn, top.depth)
+    tables = kt.pack_tables(bvh, tri)
+    dev = tables.nodes.device
+    return dataclasses.replace(
+        tables, chunk_nodes=cn, chunk_tris=ct,
+        nodes=torch.cat([tables.nodes, torch.from_numpy(top.records).to(dev)]),
+        root_box=torch.from_numpy(top.root_box).to(dev), root=top.root)
 
 
 @torch.no_grad()
@@ -138,9 +209,7 @@ def trace_chunked(tables: kt.TraceTables, orig: Tensor, d: Tensor,
         return t_out, idx_out
     with torch.cuda.device(dev):
         rc = build.load().tpuray_trace_chunked(
-            tables.meta.data_ptr(), tables.aabb.data_ptr(),
-            tables.tverts.data_ptr(), tables.n_nodes, tables.n_tris,
-            tables.chunk_nodes, tables.n_chunks, orig.data_ptr(),
+            *kt.record_args(tables), orig.data_ptr(),
             d.data_ptr(), t_max.data_ptr(), t_out.data_ptr(),
             idx_out.data_ptr(), n, int(any_hit), int(common_origin),
             torch.cuda.current_stream(dev).cuda_stream)
