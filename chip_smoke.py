@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from csrc/ with nvcc (one process per source) and
-prints each kernel's registers, stack frame and spill stores (ptxas -v),
-then:
+prints each kernel's registers, stack frame, spill stores and shared memory
+a block (ptxas -v; every kernel's shared memory is static) and the FP64
+instructions in its SASS (cuobjdump -sass), then:
   1. K1 (trace_packets) on the 640,000 camera primaries of an 800x800 frame
      of the 20,482-triangle test scene, against its plain PyTorch version;
   2. K2 (trace_multi) on that frame's bounce-0 classes (bounce ray, env
@@ -13,9 +14,12 @@ then:
      against K3 (trace_batched) on that class alone, with the three K3
      times beside K2's;
   3. K4 (reproject_variance_fused) on the denoiser's inputs of the 5th frame
-     of a moving 800x800 Renderer, against its plain version;
+     of a moving 800x800 Renderer, against its plain version, with the
+     inputs' shares of sky and fallback pixels and of blocks with a
+     fallback pixel;
   4. K5 (atrous_chain, 5 iterations) on K4's output, against its plain
-     version;
+     version, timed at 1 to 5 iterations: each step's time beside the
+     chain's;
   5. slice 2's path: Renderer under the slice config (SVGF and TAA on, the
      default view), 2 warm-up frames, then 16 moving-camera frames with the
      launch counts set to 0 just before and read just after; checks the
@@ -74,6 +78,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 from typing import NamedTuple
 
 import torch
@@ -94,6 +99,8 @@ from tpuray_torch.scene.camera import OrbitCamera
 from tpuray_torch.scene.config import RenderConfig
 from tpuray_torch.scene.procedural import make_large_scene, make_test_scene
 from tpuray_torch.train import optimize
+from tpuray_torch.denoise_times import (
+    chain_times, fallback_shares, moving_renderer, step_increments)
 from tpuray_torch.traversal_times import kernel_ms, recorded_calls
 
 H = W = 800
@@ -126,7 +133,13 @@ TRI_OPS = 38    # intersect.ray_triangle_pre: 2 dots, divide, point, 2 planes, 6
 K4_PIXEL_OPS = 190      # reproject pass: demodulate, uv, 4 taps x 30, EMA tail
 K4_RESCUE_OPS = 580     # + 16 rescue taps x 36, where the reprojection failed
 K4_FALLBACK_OPS = 2156  # + 7x7 fallback, 49 taps x 44, where history < 4
-K5_PIXEL_OPS = 1068     # one a-trous iteration: 24 taps x 43 + pre-blur, phi, divides
+# one a-trous iteration, the least a non-sky pixel needs: 24 taps x 35 (normal
+# dot 5, clamp 2, 7 squarings, depth and luminance terms 3 each (sub, abs,
+# multiply by a per-pixel reciprocal), exp and its argument 2, times w_normal
+# 1, kernel weight and mask 2, accumulations 10 (sum_w 1, rgb 6, variance 3))
+# + 41 (own luminance 5 (each point's taken once), pre-blur 17, phi_l 5,
+# phi_depth 2, reciprocals 7, outputs 5)
+K5_PIXEL_OPS = 24 * 35 + 41
 
 
 class ChainOut(NamedTuple):  # K5's outputs, for check_fields
@@ -259,40 +272,6 @@ def check_image(out, svgf_on: bool) -> None:
         raise AssertionError("implausible frame (coverage or mean)")
 
 
-class RecordK4:
-    """Records the inputs of the next K4 call the denoiser makes."""
-
-    def __init__(self):
-        self.inputs = None
-
-    def __enter__(self):
-        self.real = kr.reproject_variance_fused
-
-        def recording(cfg, **inputs):
-            self.inputs = {k: v.clone() for k, v in inputs.items()}
-            return self.real(cfg, **inputs)
-
-        kr.reproject_variance_fused = recording
-        return self
-
-    def __exit__(self, *exc):
-        kr.reproject_variance_fused = self.real
-
-
-def moving_renderer(scene, cfg, frames: int, tracer=pt.KERNELS, **cam_kw):
-    """A Renderer stepped through `frames` moving frames; records the last
-    frame's K4 inputs and the state it started from."""
-    r = Renderer(scene, cfg, tracer=tracer)
-    cam = OrbitCamera(width=cfg.width, height=cfg.height, **cam_kw)
-    for _ in range(frames - 1):
-        r.step(cam.snapshot())
-        cam.rotate(0.5, 0.0)
-    state = r.state
-    with RecordK4() as rec:
-        out = r.step(cam.snapshot())
-    return r, cam, out, state, rec.inputs
-
-
 def trace_bound(tables, stats, *tensors):
     """K1/K3/K6's bound: the tables and the rays' bytes once, and the box
     and triangle tests these rays needed (the plain walk's count)."""
@@ -301,26 +280,30 @@ def trace_bound(tables, stats, *tensors):
 
 
 def ptxas_summary(text: str) -> dict:
-    """{kernel: (registers, stack-frame bytes, spill-store bytes)} from the
-    build's `-Xptxas -v` report; names demangled as `trace_k2<3>`."""
+    """{kernel: (registers, stack-frame bytes, spill-store bytes, static
+    shared-memory bytes a block)} from the build's `-Xptxas -v` report;
+    names demangled as `trace_k2<3>`. The kernels ask for no dynamic shared
+    memory."""
     out, cur = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             cur = _demangle(m.group(1))
-            out[cur] = [0, 0, 0]
+            out[cur] = [0, 0, 0, 0]
         elif cur and "bytes stack frame" in line:
             nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
             out[cur][1], out[cur][2] = nums[0], nums[1]
         elif cur and (m := re.search(r"Used (\d+) registers", line)):
             out[cur][0] = int(m.group(1))
+            if sm := re.search(r"(\d+) bytes smem", line):
+                out[cur][3] = int(sm.group(1))
     return {k: tuple(v) for k, v in out.items()}
 
 
 def _demangle(name: str) -> str:
     """`_ZN<n>_GLOBAL__N_<file hash>8trace_k2ILi3EEEv...` -> `trace_k2<3>`
-    (kernels in an anonymous namespace with bool / int template
-    arguments)."""
+    (kernels in an anonymous namespace with bool / int template arguments;
+    `Lin1E` is -1)."""
     m = re.match(r"_ZN(\d+)", name)
     if not m or "_GLOBAL__N_" not in name:
         return name
@@ -332,9 +315,26 @@ def _demangle(name: str) -> str:
     base, rest = rest[m.end():m.end() + n], rest[m.end() + n:]
     if not rest.startswith("I"):
         return base
-    args = re.findall(r"L([bi])(\d+)E", rest[:rest.find("EE") + 2])
-    vals = [("true" if v == "1" else "false") if k == "b" else v for k, v in args]
+    args = re.findall(r"L([bi])(n?\d+)E", rest[:rest.find("EE") + 2])
+    vals = [("true" if v == "1" else "false") if k == "b" else v.replace("n", "-")
+            for k, v in args]
     return f"{base}<{', '.join(vals)}>"
+
+
+def fp64_in_sass(lib: Path) -> dict:
+    """{kernel: FP64 instructions in its SASS} from `cuobjdump -sass` of the
+    built library (the toolkit's, beside nvcc)."""
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    out, cur = {}, None
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\w+)", line):
+            cur = _demangle(m.group(1))
+            out[cur] = 0
+        elif cur and re.search(r"\b(DADD|DMUL|DFMA|DSETP|DMNMX|DSET)\b|\.F64|64H\b", line):
+            out[cur] += 1
+    return out
 
 
 def check_class(name, kernel, plain, tables, args, any_hit, reps=KERNEL_REPS):
@@ -348,11 +348,13 @@ def check_class(name, kernel, plain, tables, args, any_hit, reps=KERNEL_REPS):
         check_any(name, i_k, i_p)
     else:
         err = check_closest(name, t_k, i_k, t_p, i_p)
-    ms = kernel_ms(lambda: kernel(tables, *args), reps)
-    work = {}
-    plain(tables, *args, stats=work)
     n = args[1].shape[0]
     tm = kt._rays_tmax(args[2], n, args[1].device)
+    # timed with the per-ray t_max: a float is copied to the card, and waited
+    # for, on every call
+    ms = kernel_ms(lambda: kernel(tables, args[0], args[1], tm, *args[3:]), reps)
+    work = {}
+    plain(tables, *args, stats=work)
     live = int((tm > 0).sum())
     b = trace_bound(tables, work, args[0], args[1], tm, t_k, i_k)
     log(f"{name}: kernel {ms:.4f} ms ({n / ms / 1e3:.1f} Mrays/s, {live} live "
@@ -615,9 +617,19 @@ def main() -> None:
            else "already built from these sources")
     log(f"build: {time.perf_counter() - t0:.2f} s ({how}) -> {build.library_path()}")
     report = build.build_log or (build.library_path().parent / "build.log").read_text()
-    for kernel, (regs, stack, spill) in ptxas_summary(report).items():
+    ptxas = ptxas_summary(report)
+    for kernel, (regs, stack, spill, shared) in ptxas.items():
         log(f"  ptxas: {kernel}: {regs} registers, {stack} bytes stack frame, "
-            f"{spill} bytes spill stores")
+            f"{spill} bytes spill stores, {shared} bytes shared memory a block")
+
+    log("  sass: FP64 instructions per kernel "
+        + json.dumps(fp64_in_sass(build.library_path())))
+
+    def smem(prefix: str) -> dict:
+        """{kernel: static shared memory a block} of the kernel or its
+        instances (K5 has one per tile shape); none is dynamic."""
+        return {k: v[3] for k, v in ptxas.items()
+                if k == prefix or k.startswith(prefix + "<")}
 
     # ---- scene
     t0 = time.perf_counter()
@@ -636,7 +648,8 @@ def main() -> None:
     (t_p, i_p), k1_plain_ms = once_ms(
         lambda: kt.trace_packets_plain(tables, orig, d, INF, common_origin=True))
     k1_err = check_closest("K1 primaries", t_k, i_k, t_p, i_p)
-    k1_ms = kernel_ms(lambda: kt.trace_packets(tables, orig, d, INF,
+    inf_rays = torch.full((d.shape[0],), INF, device=dev)  # a float t_max waits on a copy
+    k1_ms = kernel_ms(lambda: kt.trace_packets(tables, orig, d, inf_rays,
                                                common_origin=True))
     work = {}
     kt.trace_packets_plain(tables, orig, d, INF, common_origin=True, stats=work)
@@ -676,11 +689,10 @@ def main() -> None:
     sky = k4_in["linear_z"] == 1.0
     hl_k, hl_p = k4.history_len, k4_ref.history_len
     n_px = hl_p.numel()
-    shares = dict(sky=float(sky.float().mean()),
-                  reprojected=float(((hl_p > 1) & ~sky).float().mean()),
+    shares = dict(reprojected=float(((hl_p > 1) & ~sky).float().mean()),
                   restarted=float(((hl_p == 1) & ~sky).float().mean()),
-                  fallback=float(((hl_p < 4) & ~sky).float().mean()))
-    log(f"K4 inputs (frame 5): pixel shares {shares}")
+                  **fallback_shares(k4_in, hl_p))
+    log(f"K4 inputs (frame 5): shares {shares}")
     if shares["reprojected"] <= 0.0 or shares["fallback"] <= 0.0:
         raise AssertionError("K4 inputs do not exercise both the reprojection and the fallback")
     hl_diff = hl_k != hl_p
@@ -697,8 +709,9 @@ def main() -> None:
     k4_bound = bound(nbytes(*k4_in.values(), *k4),
                      int((~sky).sum()) * K4_PIXEL_OPS + n_fail * K4_RESCUE_OPS
                      + n_fallback * K4_FALLBACK_OPS)
-    log(f"K4: kernel {k4_ms:.4f} ms, plain {k4_plain_ms:.1f} ms, "
-        f"bound {k4_bound[0]:.4f} ms by {k4_bound[1]}")
+    log(f"K4: kernel {k4_ms:.4f} ms (one launch; shared memory a block "
+        f"{smem('reproject_variance')} bytes), plain {k4_plain_ms:.1f} ms, bound "
+        f"{k4_bound[0]:.4f} ms by {k4_bound[1]}")
 
     # ---- 4. K5: the 5-iteration chain on K4's output
     k5_args = (k4.var_illum, k4.var_variance, k4_in["normal"], k4_in["linear_z"],
@@ -708,11 +721,12 @@ def main() -> None:
     k5_err = check_fields("K5 vs plain", ChainOut(fi, fv, ti, tv),
                           ChainOut(ri, rv, rti, rtv))
     n_iter = SLICE.num_atrous_iterations
-    k5_ms = kernel_ms(lambda: ka.atrous_chain(*k5_args))
+    k5_chain_ms = chain_times(k5_args[:5], SLICE)
+    k5_ms = k5_chain_ms[-1]
     k5_bound = bound(nbytes(*k5_args[:5], fi, fv, ti, tv),
                      int((~sky).sum()) * n_iter * K5_PIXEL_OPS)
-    log(f"K5: chain of {n_iter} {k5_ms:.4f} ms ({k5_ms / n_iter:.4f} ms per iteration, "
-        f"packing included), plain {k5_plain_ms:.1f} ms, "
+    log(f"K5: chain of {n_iter} {k5_ms:.4f} ms ({step_increments(k5_chain_ms)} ms; shared "
+        f"memory a block {smem('atrous_step')} bytes), plain {k5_plain_ms:.1f} ms, "
         f"bound {k5_bound[0]:.4f} ms by {k5_bound[1]}")
 
     # ---- 5. the main path: moving-camera frames with SVGF + TAA

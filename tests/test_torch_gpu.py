@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 K1 (shared-origin primaries), K2 (fused bounce classes, and each class
 against K3 on that class alone), K3 (per-ray origins), K4 and K5 (the
-denoiser), K6 (chunked forests of 8 and 128 chunks), K7 (the one-hot
+denoiser; also at ragged and tiny sizes and at 1080p, on sky, at every
+history tap, and with no pixel and every pixel taking K4's fallback), K6
+(chunked forests of 8 and 128 chunks), K7 (the one-hot
 hi/lo gather), frames of every path through them, and a train step's
 gradients through the traversal kernels against the plain tracer's.
 
@@ -38,6 +40,8 @@ from tpuray_torch.scene.camera import OrbitCamera
 from tpuray_torch.scene.config import RenderConfig
 from tpuray_torch.scene.procedural import make_large_scene, make_test_scene
 from tpuray_torch.train import optimize
+
+from tests.test_torch_denoise_tiles import _k4_inputs, _k5_inputs
 
 pytestmark = pytest.mark.gpu
 
@@ -329,6 +333,97 @@ def test_k5_steps_match_plain(cuda_scene, n_iters):
         for got, ref, name in ((gi, ri, "illum"), (gv, rv, "variance"),
                                (ti, rti, "tap illum"), (tv, rtv, "tap variance")):
             _assert_close(got, ref, f"{name} (quirks={quirks})")
+
+
+def _chain_close(got, ref, name):
+    (gi, gv), (ti, tv) = got
+    (ri, rv), (rti, rtv) = ref
+    for a, b, what in ((gi, ri, "illum"), (gv, rv, "variance"),
+                       (ti, rti, "tap illum"), (tv, rtv, "tap variance")):
+        _assert_close(a, b, f"{what} ({name})")
+
+
+@pytest.mark.parametrize("quirks", [False, True])
+@pytest.mark.parametrize("h,w", [(61, 97), (1080, 1920), (5, 7), (2, 2), (1, 40)])
+def test_k5_sizes_match_plain(cuda_scene, h, w, quirks):
+    """The chain of 5 at ragged sizes, at 1080p, and on images smaller
+    than the later steps' halo, kernel against plain."""
+    args = _cuda(*_k5_inputs(h * w, h, w))
+    cfg = RenderConfig(reference_quirks=quirks)
+    ka.reset_launches()
+    got = ka.atrous_chain(*args, cfg)
+    assert ka.LAUNCHES["k5"] == 5
+    ref = ka.atrous_chain_plain(*args, cfg)
+    torch.cuda.synchronize()
+    _chain_close(got, ref, f"{h}x{w}")
+
+
+@pytest.mark.parametrize("case", ["all_sky", "sky_block", "sigma_n_3", "sigma_n_64"])
+def test_k5_sky_and_sigma_match_plain(cuda_scene, case):
+    """Sky everywhere (passthrough), one 32 x 8 block of sky, sigma_n = 3
+    (the kernel's powf path) and sigma_n = 64 (six squarings)."""
+    il, var, n, z, fwz = _k5_inputs(15, 64, 96)
+    z[:8, :32] = 1.0
+    if case == "all_sky":
+        z[:] = 1.0
+    cfg = RenderConfig(sigma_n={"sigma_n_3": 3.0, "sigma_n_64": 64.0}.get(case, 128.0))
+    args = _cuda(il, var, n, z, fwz)
+    got = ka.atrous_chain(*args, cfg)
+    ref = ka.atrous_chain_plain(*args, cfg)
+    torch.cuda.synchronize()
+    _chain_close(got, ref, case)
+    assert torch.equal(got[0][0][:8, :32], args[0][:8, :32])
+    if case == "all_sky":
+        assert torch.equal(got[0][0], args[0]) and torch.equal(got[0][1], args[1])
+
+
+@pytest.mark.parametrize("tap", [0, 1, 4, 5])
+def test_k5_history_tap_matches_plain(cuda_scene, tap):
+    """The history tap at 0, 1, 4 and past the chain (the input itself)."""
+    args = _cuda(*_k5_inputs(16, 96, 128))
+    cfg = RenderConfig(history_atrous_tap=tap)
+    got = ka.atrous_chain(*args, cfg)
+    ref = ka.atrous_chain_plain(*args, cfg)
+    torch.cuda.synchronize()
+    _chain_close(got, ref, f"tap {tap}")
+    assert (got[1][0] is args[0]) == (tap >= cfg.num_atrous_iterations)
+
+
+@pytest.mark.parametrize("quirks", [False, True])
+@pytest.mark.parametrize("h,w,case", [(61, 97, "mixed"), (1080, 1920, "mixed"),
+                                      (2, 2, "mixed"), (2, 2, "all"), (64, 96, "none"),
+                                      (64, 96, "all")])
+def test_k4_cases_match_plain(cuda_scene, h, w, case, quirks):
+    """Ragged sizes, 1080p, 2 x 2, and no pixel or every pixel taking the
+    variance fallback: kernel against plain, history_len exact."""
+    a = _k4_inputs(h + w, h, w, case)
+    a = dict(zip(a, _cuda(*a.values())))
+    cfg = RenderConfig(width=w, height=h, reference_quirks=quirks)
+    kr.reset_launches()
+    got = kr.reproject_variance_fused(cfg, **a)
+    assert kr.LAUNCHES["k4"] == 1
+    ref = kr.reproject_variance_plain(cfg, **a)
+    torch.cuda.synchronize()
+    assert torch.equal(got.history_len, ref.history_len)
+    for f in got._fields:
+        _assert_close(getattr(got, f), getattr(ref, f), f)
+    needs = (ref.history_len < 4) & (a["linear_z"] != 1.0)
+    assert bool(needs.any()) == (case != "none")
+
+
+@pytest.mark.parametrize("sigma_n", [3.0, 64.0])
+def test_k4_sigma_n_matches_plain(cuda_scene, sigma_n):
+    """The fallback's normal weight through powf (sigma_n = 3) and six
+    squarings (64), kernel against plain."""
+    a = _k4_inputs(7, 61, 97, "mixed")
+    a = dict(zip(a, _cuda(*a.values())))
+    cfg = RenderConfig(width=97, height=61, sigma_n=sigma_n)
+    got = kr.reproject_variance_fused(cfg, **a)
+    ref = kr.reproject_variance_plain(cfg, **a)
+    torch.cuda.synchronize()
+    assert torch.equal(got.history_len, ref.history_len)
+    for f in got._fields:
+        _assert_close(getattr(got, f), getattr(ref, f), f)
 
 
 def test_svgf_frames_kernels_match_plain(cuda_scene):

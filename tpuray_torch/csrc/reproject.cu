@@ -17,31 +17,65 @@
 // position; rescue taps come from 4 quads with bases clamped to
 // [0, dim - 2], so an edge tap can count twice at the border.
 //
-// Design. One thread per pixel, two launches:
-//  (a) reproject: reads the 17 current and 11 history floats the exact path
-//      reads, gathers the 4 bilinear taps (and the 16 rescue taps, only
-//      where the bilinear taps fail) straight from the history planes in
-//      device memory through L1/L2, and writes rep_illum, rep_variance,
-//      moments and history_len;
-//  (b) variance: where history_len < 4 and not sky, the 7x7 filter over
-//      pass (a)'s outputs and the G-buffer; elsewhere a copy of rep_*.
 // What bounds it on this card: device-memory bytes, 28 floats read and 11
-// written per pixel (the history gather of (a) and the 7x7 window of (b)
-// mostly hit L1/L2). The fallback's 49 taps are ~2k flops where it runs.
-// This first version keeps the (H, W, C) layouts of the public function
-// and uses no shared memory; a single pass with a +-3 halo tile in shared
-// memory is later work.
+// written per pixel (~100 MB at 800x800, 0.03 ms); the history gather
+// follows the motion vectors and mostly hits L1/L2. The 7x7 fallback's 49
+// taps are ~2k flops where it runs. The first version took two
+// launches, the second (the fallback) waiting for the whole grid of the
+// first and reading its outputs and a 7x7 window of the G-buffer back from
+// L2 with 9 scalar loads, an exp and two divisions a tap: 0.128 ms.
+//
+// Design: one launch, one thread per pixel, 32 x 8 pixels a block,
+// at most 85 registers (3 blocks an SM: the history gather is latency-bound).
+//  * Each thread reprojects its pixel (reproject_px) and writes rep_illum,
+//    rep_variance, moments and history_len from registers. A sky pixel
+//    (about half of a default-view frame) writes its passthrough without
+//    reading the history or demodulating: those outputs do not depend on
+//    them.
+//  * __syncthreads_or tells the block whether any of its pixels needs the
+//    fallback (history_len < 4, not sky). If none does, each thread writes
+//    var_* = rep_* from registers and the block ends.
+//  * Otherwise the block fills a 38 x 14 tile (its pixels and a halo of 3)
+//    in shared memory: rep_illum rgb and its luminance, the current normal
+//    and linear_z, and moments, 40 bytes a point, each point the pixel at
+//    its clamped coordinate (clamp to edge, as shift2d). Its own 256 points
+//    come from registers; the 276 halo points are reprojected again by the
+//    block (reproject_px on that pixel: the same instructions, so the same
+//    bits as the pixel's own block computes), each reading what a pixel's
+//    reprojection reads (~28 floats and its 4 to 20 history taps). Shared
+//    memory: 532 points x 40 B = 21,280 bytes a block, static (no
+//    cudaFuncSetAttribute); 80 registers, an 8-byte stack frame (ptxas).
+//    On a moving frame 1.9% of the blocks stage a tile (PERF.md).
+//  * The 7x7 fallback reads the tile only: constant offsets from the
+//    thread's own point, the inside-the-image mask as a select.
 //
 // Exactness. Built with -fmad=false, IEEE division and sqrt and no fast
 // math, every operation repeats the plain version's op order, so the
 // outputs equal the plain PyTorch version's up to expf/powf's last bits;
-// history_len and the validity decisions are exact. jnp.round is half to
-// even (rintf); max/min propagate NaN like torch.clamp_min.
+// history_len and the validity decisions are exact. (Reciprocals taken once
+// per pixel, as K5 takes them, moved var_variance = m1 - m0^2 past rtol
+// 1e-5 where the two moments nearly cancel: the fallback divides per tap,
+// which costs little, since it runs on under 1% of a moving frame's pixels.)
+// Identities, not reorderings: the clamps of w_l and w_z at 0 are dropped
+// (both are >= +0 or NaN). Distances are float constants (the float of the plain version's double
+// sqrt) and the quirks path's 1 / w is rounded on the host, so no FP64
+// instruction is left. jnp.round is half to even (rintf); max/min
+// propagate NaN like torch.clamp_min (denoise_common.cuh).
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "denoise_common.cuh"
 
 namespace {
+
+using denoise::clampi;
+using denoise::lum;
+using denoise::maxp;
+using denoise::minp;
+
+constexpr int BW = 32, BH = 8;  // pixels a block
+constexpr int HR = 3;           // the fallback's radius
+constexpr int SW = BW + 2 * HR, SH = BH + 2 * HR;
+constexpr int TILE = SW * SH;            // 532 points
+constexpr int RING = TILE - BW * BH;     // 276 halo points
 
 struct Params {
   int h, w;
@@ -50,6 +84,7 @@ struct Params {
   int n_sq;  // sigma_n == 2^n_sq: repeated squaring; -1: powf
   float sigma_l;
   int quirks;
+  float texel_w, texel_h;  // float(1.0 / w), float(1.0 / h)
 };
 
 struct Inputs {
@@ -77,33 +112,6 @@ struct Outputs {
   float* __restrict__ var_illum;     // (H, W, 3)
   float* __restrict__ var_variance;  // (H, W)
 };
-
-// max / min that return a NaN first operand, as torch.clamp_min/_max do
-__device__ __forceinline__ float maxp(float a, float b) { return (a != a || a > b) ? a : b; }
-__device__ __forceinline__ float minp(float a, float b) { return (a != a || a < b) ? a : b; }
-__device__ __forceinline__ int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
-
-__device__ __forceinline__ float lum(float r, float g, float b) {
-  return 0.2125f * r + 0.7154f * g + 0.0721f * b;
-}
-
-__device__ __forceinline__ float pow_weight(float x, const Params& p) {
-  x = minp(maxp(x, 0.f), 1.f);
-  if (p.n_sq < 0) return powf(x, p.sigma_n);
-  for (int i = 0; i < p.n_sq; ++i) x = x * x;
-  return x;
-}
-
-// computeWeight (svgf_variance.frag:23-35); phi_l is already floored
-__device__ __forceinline__ float edge_weight(float z_c, float z_p, float phi_d,
-                                             const float* n_c, const float* n_p,
-                                             const Params& p, float l_c, float l_p,
-                                             float phi_l) {
-  float w_normal = pow_weight(n_c[0] * n_p[0] + n_c[1] * n_p[1] + n_c[2] * n_p[2], p);
-  float w_z = (phi_d == 0.f) ? 0.f : fabsf(z_c - z_p) / phi_d;
-  float w_l = fabsf(l_c - l_p) / phi_l;
-  return expf(-maxp(w_l, 0.f) - maxp(w_z, 0.f)) * w_normal;
-}
 
 struct HistRow {
   float iv[4];  // illum rgb, variance
@@ -149,24 +157,44 @@ __device__ __forceinline__ int qdy(int k) { return k >> 1; }
 __device__ __forceinline__ int bdx(int b) { return (b & 1) * 2 - 1; }
 __device__ __forceinline__ int bdy(int b) { return (b >> 1) * 2 - 1; }
 
-__global__ void __launch_bounds__(256) reproject_pass(Inputs in, Outputs out, Params p) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= p.w || y >= p.h) return;
+// what the reprojection gives a pixel, and its current G-buffer normal and z
+struct Rep {
+  float o[3];    // rep_illum
+  float var;     // rep_variance
+  float mom[2];  // moments
+  float hl;      // history_len
+  float n[3];
+  float z;
+};
+
+// the exact reprojection of pixel (x, y), which lies inside the image; a
+// sky pixel's outputs are its passthrough, so it reads no history
+__device__ __forceinline__ Rep reproject_px(const Inputs& in, const Params& p, int x, int y) {
   const int i = y * p.w + x;
   const int w = p.w, h = p.h;
-
-  const float z = in.linear_z[i];
-  const bool sky = z == 1.f;
+  Rep r;
+  r.z = in.linear_z[i];
+  const float z = r.z;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) r.n[c] = in.normal[3 * i + c];
+  if (z == 1.f) {  // sky passthrough (frag:166-171): raw colour, the prior moments
+#pragma unroll
+    for (int c = 0; c < 3; ++c) r.o[c] = in.color[3 * i + c];
+    r.var = 0.f;
+    r.mom[0] = in.prev_moments[2 * i];
+    r.mom[1] = in.prev_moments[2 * i + 1];
+    r.hl = in.prev_hist[i];
+    return r;
+  }
   const float fw_z = in.fwidth_z[i], fw_n = in.fwidth_normal[i];
-  const float n[3] = {in.normal[3 * i], in.normal[3 * i + 1], in.normal[3 * i + 2]};
+  const float* n = r.n;
 
   // demodulate (svgf_reproject.frag:26-29, 174)
-  float il[3], col[3];
+  float il[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    col[c] = in.color[3 * i + c];
-    const float v = (col[c] - in.emission[3 * i + c]) / maxp(in.albedo[3 * i + c], 1e-3f);
+    const float v = (in.color[3 * i + c] - in.emission[3 * i + c]) /
+                    maxp(in.albedo[3 * i + c], 1e-3f);
     il[c] = (v != v) ? 0.f : v;
   }
 
@@ -180,8 +208,9 @@ __global__ void __launch_bounds__(256) reproject_pass(Inputs in, Outputs out, Pa
   float frac_x, frac_y;
   if (p.quirks) {
     // jnp.remainder: fmod, then + d where the remainder is negative; d is
-    // 1/w in double rounded to float, as the plain version's scalar is
-    const float dx = static_cast<float>(1.0 / w), dy = static_cast<float>(1.0 / h);
+    // 1/w in double rounded to float (on the host), as the plain version's
+    // scalar is
+    const float dx = p.texel_w, dy = p.texel_h;
     frac_x = fmodf(uv_x, dx);
     frac_y = fmodf(uv_y, dy);
     if (frac_x < 0.f) frac_x = frac_x + dx;
@@ -196,20 +225,21 @@ __global__ void __launch_bounds__(256) reproject_pass(Inputs in, Outputs out, Pa
   const int yc = clampi(y0, 0, h - 1), xc = clampi(x0, 0, w - 1);
   const float wts[4] = {(1.f - frac_x) * (1.f - frac_y), frac_x * (1.f - frac_y),
                         (1.f - frac_x) * frac_y, frac_x * frac_y};
-  HistRow taps[4];
+  float hls[4];
   float sum_w = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f}, acc_m[2] = {0.f, 0.f};
   bool any_valid = false;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    taps[k] = fetch(in, min(yc + qdy(k), h - 1), min(xc + qdx(k), w - 1), w);
-    const bool v = tap_valid(y0 + qdy(k), x0 + qdx(k), p, z, fw_z, n, fw_n, taps[k]);
+    const HistRow t = fetch(in, min(yc + qdy(k), h - 1), min(xc + qdx(k), w - 1), w);
+    hls[k] = t.hl;
+    const bool v = tap_valid(y0 + qdy(k), x0 + qdx(k), p, z, fw_z, n, fw_n, t);
     any_valid = any_valid || v;
     const float wv = v ? wts[k] : 0.f;
     sum_w = sum_w + wv;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[c] = acc[c] + wv * taps[k].iv[c];
-    acc_m[0] = acc_m[0] + wv * taps[k].m[0];
-    acc_m[1] = acc_m[1] + wv * taps[k].m[1];
+    for (int c = 0; c < 4; ++c) acc[c] = acc[c] + wv * t.iv[c];
+    acc_m[0] = acc_m[0] + wv * t.m[0];
+    acc_m[1] = acc_m[1] + wv * t.m[1];
   }
   const bool bilinear_ok = any_valid && (sum_w >= 0.01f);
   const float safe_w = maxp(sum_w, 1e-6f);
@@ -223,7 +253,7 @@ __global__ void __launch_bounds__(256) reproject_pass(Inputs in, Outputs out, Pa
   // [0, dim - 2]; only read where the bilinear taps failed
   bool rescue_ok = false;
   if (!bilinear_ok) {
-    float n_valid = 0.f, r[4] = {0.f, 0.f, 0.f, 0.f}, r_m[2] = {0.f, 0.f};
+    float n_valid = 0.f, rs[4] = {0.f, 0.f, 0.f, 0.f}, rs_m[2] = {0.f, 0.f};
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
       const int yb = clampi(y0 + bdy(b), 0, h - 2);
@@ -239,18 +269,18 @@ __global__ void __launch_bounds__(256) reproject_pass(Inputs in, Outputs out, Pa
         const float vf = v ? 1.f : 0.f;
         n_valid = n_valid + vf;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) r[c] = r[c] + vf * t.iv[c];
-        r_m[0] = r_m[0] + vf * t.m[0];
-        r_m[1] = r_m[1] + vf * t.m[1];
+        for (int c = 0; c < 4; ++c) rs[c] = rs[c] + vf * t.iv[c];
+        rs_m[0] = rs_m[0] + vf * t.m[0];
+        rs_m[1] = rs_m[1] + vf * t.m[1];
       }
     }
     rescue_ok = n_valid > 0.f;
     if (rescue_ok) {
       const float safe_n = maxp(n_valid, 1.f);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) prev_i[c] = r[c] / safe_n;
-      prev_m[0] = r_m[0] / safe_n;
-      prev_m[1] = r_m[1] / safe_n;
+      for (int c = 0; c < 4; ++c) prev_i[c] = rs[c] / safe_n;
+      prev_m[0] = rs_m[0] / safe_n;
+      prev_m[1] = rs_m[1] / safe_n;
     }
   }
   const bool success = bilinear_ok || rescue_ok;
@@ -258,83 +288,147 @@ __global__ void __launch_bounds__(256) reproject_pass(Inputs in, Outputs out, Pa
   // history length at round(f): one of the 4 bilinear corners
   const bool near_x = clampi(static_cast<int>(rintf(fx)), 0, w - 1) > xc;
   const bool near_y = clampi(static_cast<int>(rintf(fy)), 0, h - 1) > yc;
-  const float hist_prev = near_y ? (near_x ? taps[3].hl : taps[2].hl)
-                                 : (near_x ? taps[1].hl : taps[0].hl);
+  const float hist_prev = near_y ? (near_x ? hls[3] : hls[2]) : (near_x ? hls[1] : hls[0]);
   // EMA + history-length tail (svgf_reproject.frag:143-205)
-  float hist = minp(success ? hist_prev + 1.f : 1.f, p.history_cap);
-  const float alpha = success ? maxp(1.f / hist, p.alpha_min) : 1.f;
+  r.hl = minp(success ? hist_prev + 1.f : 1.f, p.history_cap);
+  const float alpha = success ? maxp(1.f / r.hl, p.alpha_min) : 1.f;
   const float l = lum(il[0], il[1], il[2]);
   const float mom_new[2] = {l, l * l};
-  float mom[2];
-  mom[0] = (1.f - alpha) * prev_m[0] + alpha * mom_new[0];
-  mom[1] = (1.f - alpha) * prev_m[1] + alpha * mom_new[1];
-  float variance = maxp(mom[1] - mom[0] * mom[0], 0.f);
-  float o[3];
+  r.mom[0] = (1.f - alpha) * prev_m[0] + alpha * mom_new[0];
+  r.mom[1] = (1.f - alpha) * prev_m[1] + alpha * mom_new[1];
+  r.var = maxp(r.mom[1] - r.mom[0] * r.mom[0], 0.f);
 #pragma unroll
-  for (int c = 0; c < 3; ++c) o[c] = (1.f - alpha) * prev_i[c] + alpha * il[c];
-
-  // sky passthrough (frag:166-171): raw colour, the prior moments
-  if (sky) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) o[c] = col[c];
-    variance = 0.f;
-    mom[0] = in.prev_moments[2 * i];
-    mom[1] = in.prev_moments[2 * i + 1];
-    hist = in.prev_hist[i];
-  }
-#pragma unroll
-  for (int c = 0; c < 3; ++c) out.rep_illum[3 * i + c] = o[c];
-  out.rep_variance[i] = variance;
-  out.moments[2 * i] = mom[0];
-  out.moments[2 * i + 1] = mom[1];
-  out.history_len[i] = hist;
+  for (int c = 0; c < 3; ++c) r.o[c] = (1.f - alpha) * prev_i[c] + alpha * il[c];
+  return r;
 }
 
-// estimate_variance (svgf_variance.frag) on pass (a)'s outputs
-__global__ void __launch_bounds__(256) variance_pass(Inputs in, Outputs out, Params p) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= p.w || y >= p.h) return;
-  const int i = y * p.w + x;
+// halo point k of the tile (the ring around the block's 32 x 8) -> (ex, ey)
+__device__ __forceinline__ void ring_point(int k, int& ex, int& ey) {
+  if (k < 2 * HR * SW) {  // the top and bottom bands, full width
+    const int band = k / (HR * SW), rem = k % (HR * SW);
+    ey = band * (SH - HR) + rem / SW;
+    ex = rem % SW;
+  } else {  // the left and right columns beside the block's rows
+    k -= 2 * HR * SW;
+    ey = HR + k / (2 * HR);
+    const int c = k % (2 * HR);
+    ex = c < HR ? c : BW + c;
+  }
+}
+
+// tap distance sqrt(d2) of the 7x7 window for d2 = dx^2 + dy^2 in {0, 1, 2,
+// 4, 5, 8, 9, 10, 13, 18}, the float of the plain version's double
+__device__ __forceinline__ float dist7(int d2) {
+  return d2 == 0 ? 0.f : d2 == 1 ? 0x1p+0f : d2 == 2 ? 0x1.6a09e6p+0f : d2 == 4 ? 0x1p+1f
+       : d2 == 5 ? 0x1.1e377ap+1f : d2 == 8 ? 0x1.6a09e6p+1f : d2 == 9 ? 0x1.8p+1f
+       : d2 == 10 ? 0x1.94c584p+1f : d2 == 13 ? 0x1.cd82b4p+1f : 0x1.0f876cp+2f;
+}
+
+template <int kSq>
+__global__ void __launch_bounds__(BW * BH, 3) reproject_variance(Inputs in, Outputs out,
+                                                                 Params p) {
+  __shared__ float4 s_il[TILE];  // rep_illum rgb, its luminance
+  __shared__ float4 s_nz[TILE];  // normal, linear_z
+  __shared__ float2 s_m[TILE];   // moments
+
   const int w = p.w, h = p.h;
-  const float hl = out.history_len[i];
-  const float z = in.linear_z[i];
-  if (!(hl < 4.f && !(z == 1.f))) {
+  const int bx0 = blockIdx.x * BW, by0 = blockIdx.y * BH;
+  const int x = bx0 + threadIdx.x, y = by0 + threadIdx.y;
+  const bool in_img = x < w && y < h;
+  const int i = y * w + x;
+  const int c0 = (threadIdx.y + HR) * SW + threadIdx.x + HR;  // own tile point
+  float var, hl;  // what the fallback or its passthrough needs besides the tile
+  bool needs;
+  {
+    // a thread past the ragged edge reprojects the clamped pixel: its tile point
+    const Rep r = reproject_px(in, p, min(x, w - 1), min(y, h - 1));
+    if (in_img) {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) out.var_illum[3 * i + c] = out.rep_illum[3 * i + c];
-    out.var_variance[i] = out.rep_variance[i];
+      for (int c = 0; c < 3; ++c) out.rep_illum[3 * i + c] = r.o[c];
+      out.rep_variance[i] = r.var;
+      out.moments[2 * i] = r.mom[0];
+      out.moments[2 * i + 1] = r.mom[1];
+      out.history_len[i] = r.hl;
+    }
+    // estimate_variance (svgf_variance.frag) where history_len < 4, not sky
+    needs = in_img && r.hl < 4.f && !(r.z == 1.f);
+    if (!__syncthreads_or(needs)) {
+      if (in_img) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) out.var_illum[3 * i + c] = r.o[c];
+        out.var_variance[i] = r.var;
+      }
+      return;
+    }
+    s_il[c0] = make_float4(r.o[0], r.o[1], r.o[2], lum(r.o[0], r.o[1], r.o[2]));
+    s_nz[c0] = make_float4(r.n[0], r.n[1], r.n[2], r.z);
+    s_m[c0] = make_float2(r.mom[0], r.mom[1]);
+    var = r.var;
+    hl = r.hl;
+  }
+  for (int k = threadIdx.y * BW + threadIdx.x; k < RING; k += BW * BH) {
+    int ex, ey;
+    ring_point(k, ex, ey);
+    const Rep q = reproject_px(in, p, clampi(bx0 + ex - HR, 0, w - 1),
+                               clampi(by0 + ey - HR, 0, h - 1));
+    const int e = ey * SW + ex;
+    s_il[e] = make_float4(q.o[0], q.o[1], q.o[2], lum(q.o[0], q.o[1], q.o[2]));
+    s_nz[e] = make_float4(q.n[0], q.n[1], q.n[2], q.z);
+    s_m[e] = make_float2(q.mom[0], q.mom[1]);
+  }
+  __syncthreads();
+  if (!in_img) return;
+  const float4 own = s_il[c0];
+  if (!needs) {
+    out.var_illum[3 * i] = own.x;
+    out.var_illum[3 * i + 1] = own.y;
+    out.var_illum[3 * i + 2] = own.z;
+    out.var_variance[i] = var;
     return;
   }
-  const float n_c[3] = {in.normal[3 * i], in.normal[3 * i + 1], in.normal[3 * i + 2]};
-  const float l_c = lum(out.rep_illum[3 * i], out.rep_illum[3 * i + 1], out.rep_illum[3 * i + 2]);
+
+  const float4 nz = s_nz[c0];
+  const float l_c = own.w;
   const float phi_depth = maxp(in.fwidth_z[i], 1e-8f) * 3.0f;
   const float phi_l = maxp(p.sigma_l, 1e-10f);
+  // bit k + 3 of in_x / in_y: offset k inside the image
+  unsigned in_x = 0, in_y = 0;
+#pragma unroll
+  for (int k = -HR; k <= HR; ++k) {
+    in_x |= static_cast<unsigned>(x + k >= 0 && x + k < w) << (k + HR);
+    in_y |= static_cast<unsigned>(y + k >= 0 && y + k < h) << (k + HR);
+  }
 
-  float sum_w = 0.f, s_il[3] = {0.f, 0.f, 0.f}, s_m[2] = {0.f, 0.f};
+  float sum_w = 0.f, s_i[3] = {0.f, 0.f, 0.f}, s_mo[2] = {0.f, 0.f};
 #pragma unroll
-  for (int dy = -3; dy <= 3; ++dy) {
+  for (int dy = -HR; dy <= HR; ++dy) {
 #pragma unroll
-    for (int dx = -3; dx <= 3; ++dx) {
-      const bool inside = y + dy >= 0 && y + dy < h && x + dx >= 0 && x + dx < w;
-      const int j = clampi(y + dy, 0, h - 1) * w + clampi(x + dx, 0, w - 1);
-      const float il_p[3] = {out.rep_illum[3 * j], out.rep_illum[3 * j + 1],
-                             out.rep_illum[3 * j + 2]};
-      const float n_p[3] = {in.normal[3 * j], in.normal[3 * j + 1], in.normal[3 * j + 2]};
-      const float dist = static_cast<float>(sqrt(static_cast<double>(dx * dx + dy * dy)));
-      float wgt = edge_weight(z, in.linear_z[j], phi_depth * dist, n_c, n_p, p, l_c,
-                              lum(il_p[0], il_p[1], il_p[2]), phi_l);
+    for (int dx = -HR; dx <= HR; ++dx) {
+      const int e = c0 + dy * SW + dx;
+      const float4 a = s_il[e];
+      const float4 g = s_nz[e];
+      const float2 m = s_m[e];
+      // computeWeight (svgf_variance.frag:23-35)
+      const float w_normal =
+          denoise::pow_weight<kSq>(nz.x * g.x + nz.y * g.y + nz.z * g.z, p.sigma_n, p.n_sq);
+      const float phi_d = phi_depth * dist7(dx * dx + dy * dy);
+      const float w_z = (phi_d == 0.f) ? 0.f : fabsf(nz.w - g.w) / phi_d;
+      const float w_l = fabsf(l_c - a.w) / phi_l;
+      float wgt = expf(-w_l - w_z) * w_normal;
+      const bool inside = (in_x >> (dx + HR)) & (in_y >> (dy + HR)) & 1u;
       wgt = inside ? wgt : 0.f;
       sum_w = sum_w + wgt;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) s_il[c] = s_il[c] + wgt * il_p[c];
-      s_m[0] = s_m[0] + wgt * out.moments[2 * j];
-      s_m[1] = s_m[1] + wgt * out.moments[2 * j + 1];
+      s_i[0] = s_i[0] + wgt * a.x;
+      s_i[1] = s_i[1] + wgt * a.y;
+      s_i[2] = s_i[2] + wgt * a.z;
+      s_mo[0] = s_mo[0] + wgt * m.x;
+      s_mo[1] = s_mo[1] + wgt * m.y;
     }
   }
   sum_w = maxp(sum_w, 1e-6f);
 #pragma unroll
-  for (int c = 0; c < 3; ++c) out.var_illum[3 * i + c] = s_il[c] / sum_w;
-  const float m0 = s_m[0] / sum_w, m1 = s_m[1] / sum_w;
+  for (int c = 0; c < 3; ++c) out.var_illum[3 * i + c] = s_i[c] / sum_w;
+  const float m0 = s_mo[0] / sum_w, m1 = s_mo[1] / sum_w;
   out.var_variance[i] = (m1 - m0 * m0) * (4.f / maxp(hl, 1e-3f));
 }
 
@@ -354,12 +448,12 @@ extern "C" int tpuray_reproject_variance(
                   prev_moments, prev_history_len};
   const Outputs out{rep_illum, rep_variance, moments, history_len, var_illum, var_variance};
   const Params p{h, w, depth_thr, normal_thr, history_cap, alpha_min, sigma_n, n_sq,
-                 sigma_l, quirks};
-  const dim3 block(32, 8);
-  const dim3 grid((w + block.x - 1) / block.x, (h + block.y - 1) / block.y);
-  reproject_pass<<<grid, block, 0, stream>>>(in, out, p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  variance_pass<<<grid, block, 0, stream>>>(in, out, p);
+                 sigma_l, quirks, static_cast<float>(1.0 / w), static_cast<float>(1.0 / h)};
+  const dim3 block(BW, BH);
+  const dim3 grid((w + BW - 1) / BW, (h + BH - 1) / BH);
+  auto kernel = n_sq == denoise::kDefaultSquarings
+                    ? reproject_variance<denoise::kDefaultSquarings>
+                    : reproject_variance<-1>;
+  kernel<<<grid, block, 0, stream>>>(in, out, p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(_PKG / "csrc" / f for f in ("trace.cu", "trace_chunked.cu",
                                              "reproject.cu", "atrous.cu",
                                              "gather.cu"))
-HEADERS = (_PKG / "csrc" / "trace_common.cuh",)
+HEADERS = tuple(_PKG / "csrc" / f for f in ("trace_common.cuh", "denoise_common.cuh"))
 BUILD_ROOT = _PKG.parent / "build" / "tpuray_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,7 +42,7 @@ _SIGNATURES = {
     "tpuray_trace_multi": [_P, _P, _P, _I, _P] + [_P] * 12 + [_I, _I, _I, _P],
     "tpuray_reproject_variance": [_P] * 20 + [_I, _I, _F, _F, _F, _F, _F, _I,
                                               _F, _I, _P],
-    "tpuray_atrous_step": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _I, _P],
+    "tpuray_atrous_step": [_P] * 7 + [_I, _I, _I, _F, _I, _F, _I, _P],
     "tpuray_onehot_gather": [_P, _P, _P, _I, _I, _L, _P],
 }
 

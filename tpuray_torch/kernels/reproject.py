@@ -1,8 +1,10 @@
 """K4: SVGF reprojection + spatial variance fallback (reproject_variance_fused).
 
 Counterpart of tpuray/kernels/reproject_pallas.py. The CUDA kernel lives
-in csrc/reproject.cu (see its header for the design). It computes what the
-JAX package's exact path computes, reproject(reproject_gather="exact")
+in csrc/reproject.cu (see its header for the design: one launch; a block
+whose pixels need the variance fallback reprojects a halo of 3 into a
+shared-memory tile and filters from it). It computes what the JAX
+package's exact path computes, reproject(reproject_gather="exact")
 followed by estimate_variance, which is this module's plain version; the
 TPU kernel's tile-windowed history read is not carried over.
 
@@ -11,9 +13,8 @@ The wrapper
   kernel; pallas_denoise=False runs the plain stages, which differentiate);
 - runs the plain version when its tensors lie on the CPU;
 - on CUDA tensors, checks device, dtype, shape and contiguity, allocates
-  the six outputs, launches the two passes on the current stream, raises if
-  a launch failed, and adds one to LAUNCHES["k4"] (one per call, whatever
-  the number of passes inside). There is no fallback.
+  the six outputs, launches the kernel on the current stream, raises if
+  the launch failed, and adds one to LAUNCHES["k4"]. There is no fallback.
 """
 from __future__ import annotations
 

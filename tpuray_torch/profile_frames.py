@@ -14,7 +14,8 @@ host clock, every run before any profiling; then `--frames` frames of each
 under torch.profiler. Prints per frame the wall time, the device kernels,
 their summed device time, the device's busy share (device time over the
 unprofiled wall time), each hand-written kernel's share of the device time
-and the kernels that take the most device time. What SVGF on adds over
+and its device ms per frame, and the kernels that take the most device
+time. What SVGF on adds over
 SVGF off is the denoiser's share. The profiler's tables go to DIR
 (default build/profile, which git ignores). Needs a CUDA device.
 """
@@ -42,8 +43,7 @@ from tpuray_torch.train import optimize
 
 # device-kernel name prefixes of the hand-written kernels (csrc/*.cu)
 _OURS = {"K1/K3": "trace_k1", "K2": "trace_k2", "K6": "trace_k6",
-         "K4": ("reproject_pass", "variance_pass"), "K5": "atrous_step",
-         "K7": "onehot_gather_k7"}
+         "K4": "reproject_variance", "K5": "atrous_step", "K7": "onehot_gather_k7"}
 
 
 def _kernels(prof) -> list[tuple[str, float]]:
@@ -101,12 +101,11 @@ class _Run:
               f"{res['kernels_per_frame']:.1f} device kernels and "
               f"{device_ms:.3f} device ms per frame; busy share "
               f"{res['busy_share']:.3f}; launches {res['launches']}", flush=True)
-        total_us = sum(us for _, us in kernels)
-        shares = {k: sum(us for name, us in kernels
-                         if any(p in name for p in (v if isinstance(v, tuple) else (v,))))
-                  / total_us for k, v in _OURS.items()}
-        print(f"[{tag}]   share of device time: "
-              + ", ".join(f"{k} {v:.3f}" for k, v in shares.items() if v), flush=True)
+        ours = {k: sum(us for name, us in kernels if v in name) / 1e3 / frames
+                for k, v in _OURS.items()}
+        print(f"[{tag}]   share of device time (device ms per frame): "
+              + ", ".join(f"{k} {ms / device_ms:.3f} ({ms:.4f})" for k, ms in ours.items() if ms),
+              flush=True)
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
         for name, (n, us) in top:
             print(f"[{tag}]   {us / 1e3 / frames:8.3f} ms/frame {n / frames:7.1f} "

@@ -13,8 +13,9 @@ separate-walk bounce-0 bounce ray (K3), the six K6 walks of a 131k-forest
 frame (primaries, bounce-0 env shadow, point shadow and bounce ray,
 bounce-1 env and point shadow) and the 524k forest's primaries and
 bounce-0 bounce ray. Each time is the mean device time of 20 launches
-between two CUDA events, after 3 warm-ups (kernel_ms, which chip_smoke.py
-uses too).
+between two CUDA events, after 3 warm-ups, queued behind a spin kernel so
+that the host's launch overhead does not count (kernel_ms, which
+chip_smoke.py and denoise_times.py use too).
 Prints one line per walk, then one JSON line {walk: ms}. Needs a CUDA
 device.
 """
@@ -30,17 +31,30 @@ W = H = 800
 
 
 def kernel_ms(fn, reps: int = 20) -> float:
-    """Mean device time of fn() over reps launches, after 3 warm-ups."""
+    """Mean device time of fn() over reps calls, after 3 warm-ups. A spin
+    kernel (torch.cuda._sleep) holds the stream while the host queues the
+    calls, so the events time the device's work and not the host's launch
+    overhead (a wrapper's checks and allocations can take longer than its
+    kernel). The spin grows 4x while it ends before the last call is
+    queued; a call that waits for the device (a synchronous copy of a host
+    scalar) drains it however long it is, and is then timed with the
+    host's share, as without the spin."""
     import torch
     for _ in range(3):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    for spin in (1 << 24, 1 << 26, 1 << 28):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        drained = start.query()  # the spin ended before the last call was queued
+        torch.cuda.synchronize()
+        if not drained:
+            break
     return start.elapsed_time(end) / reps
 
 
@@ -110,7 +124,8 @@ def main() -> None:
     tables = kt.pack_scene(scene.bvh, scene.triangles)
     rays = camera_rays(OrbitCamera(width=W, height=H).snapshot(dev), H, W)
     orig, d = rays[0], rays[1]
-    timed("K1 primaries", lambda: kt.trace_packets(tables, orig, d, INF,
+    inf_rays = torch.full((d.shape[0],), INF, device=dev)  # a float t_max waits on a copy
+    timed("K1 primaries", lambda: kt.trace_packets(tables, orig, d, inf_rays,
                                                    common_origin=True))
     _, o2, dirs, tms, ah = recorded_calls(scene, cfg, tables, rays)[1][1]
     timed("K2 bounce 0, 3 classes", lambda: kt.trace_multi(tables, o2, dirs, tms, ah))
@@ -131,8 +146,11 @@ def main() -> None:
         names = ("primaries", "bounce-0 env shadow", "bounce-0 point shadow",
                  "bounce-0 bounce ray", "bounce-1 env shadow", "bounce-1 point shadow")
         for k in walks:
+            args = list(calls[k][1][1:])  # orig, d, t_max, ...
+            if not isinstance(args[2], torch.Tensor):  # a float t_max waits on a copy
+                args[2] = torch.full((args[1].shape[0],), args[2], device=dev)
             timed(f"K6 {tag} {names[k]}",
-                  lambda k=k: ktc.trace_chunked(forest, *calls[k][1][1:]))
+                  lambda args=args: ktc.trace_chunked(forest, *args))
         del large, forest, calls
     print(json.dumps(times), flush=True)
 
