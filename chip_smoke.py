@@ -41,17 +41,20 @@ instructions in its SASS (cuobjdump -sass), then:
      frames then 16 moving frames (launches: K6 6 a frame, K4 1, K5 5, K1,
      K2 and K3 none), then 2 frames at 256x256 through the kernels against
      the plain versions;
- 11. K3 (trace_batched) on one frame's bounce-0 env-shadow and continuation
-     rays of the separate-walk (fused_secondary=False) and MIS integrators
-     on the test scene, against its plain version;
+ 11. K3 (trace_batched, the wide walk) on all five of its walks of one
+     frame of the separate-walk (fused_secondary=False) and of the MIS
+     integrator on the test scene, each against its plain version and
+     timed, with each frame's five-walk sum;
  12. 8 moving MIS frames and 8 moving separate-walk frames at 800x800
      (launches: K1 1 and K3 5 a frame each), and 2 frames of each through
      the kernels against the plain versions;
  13. K7 (onehot_gather, on no path) at the main path's shapes: the
      triangle table (20,482 x 26) at the 640,000 clamped primary hit
      indices of phase 1, the material table at those hits' mat_id, and an
-     (11k, 44) table at 640k random indices; bit-exact against its plain
-     version, within 2^-16 relative of table[idx] (the library yardstick);
+     (11k, 44) table at 640k random indices (traversal_times.k7_cases);
+     bit-exact against its plain version, within 2^-16 relative of
+     table[idx] (the library yardstick); K7 and table[idx] both timed as
+     device work (kernel_ms);
  14. the JAX package's six gradient checks (bench.py:307-434) through
      render_frame with SVGF off, 128x128, depth 2: central FD against AD
      for base_color, specular, sheen and light_radiance (relative error
@@ -85,7 +88,6 @@ import torch
 
 from tpuray_torch.denoise.svgf import svgf_pipeline
 from tpuray_torch.integrator import path_tracer as pt
-from tpuray_torch.integrator.gather_tables import fetch_tri, pack_scene_tables
 from tpuray_torch.integrator.intersect import INF
 from tpuray_torch.kernels import atrous as ka
 from tpuray_torch.kernels import build
@@ -101,7 +103,7 @@ from tpuray_torch.scene.procedural import make_large_scene, make_test_scene
 from tpuray_torch.train import optimize
 from tpuray_torch.denoise_times import (
     chain_times, fallback_shares, moving_renderer, step_increments)
-from tpuray_torch.traversal_times import kernel_ms, recorded_calls
+from tpuray_torch.traversal_times import k3_walks, k7_cases, kernel_ms, recorded_calls
 
 H = W = 800
 # slice 2: the default view (SVGF + TAA on) without compaction (item 10)
@@ -151,21 +153,6 @@ class ChainOut(NamedTuple):  # K5's outputs, for check_fields
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def median_ms(fn, reps: int = KERNEL_REPS) -> float:
-    """Median device time of reps launches of fn(), each between its own
-    pair of events, after 3 warm-ups."""
-    for _ in range(3):
-        fn()
-    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(reps)]
-    for start, end in events:
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
 def once_ms(fn):
@@ -422,30 +409,21 @@ def check_k7(name, table, idx):
     rel = float(((got - lib).abs() / lib.abs().clamp_min(2.0 ** -126)).max())
     if rel > 2.0 ** -16:
         raise AssertionError(f"K7 {name}: {rel:.3g} relative from table[idx] > 2^-16")
-    ms = median_ms(lambda: kg.onehot_gather(table, idx))
-    lib_ms = median_ms(lambda: table[idx])
+    ms = kernel_ms(lambda: kg.onehot_gather(table, idx))
+    lib_ms = kernel_ms(lambda: table[idx])
     b = bound(nbytes(table, idx, got), got.numel() * 4)  # 2 roundings, a subtract, an add
     log(f"K7 {name}: table {tuple(table.shape)} at {idx.numel()} indices, bit-exact "
-        f"vs plain, max rel vs table[idx] {rel:.3g}; kernel {ms:.4f} ms (median of "
-        f"{KERNEL_REPS}), table[idx] {lib_ms:.4f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {b[0]:.4f} ms by {b[1]}")
+        f"vs plain, max rel vs table[idx] {rel:.3g}; kernel {ms:.4f} ms, table[idx] "
+        f"{lib_ms:.4f} ms (device time, mean of 20), plain {plain_ms:.3f} ms, bound "
+        f"{b[0]:.4f} ms by {b[1]} (the kernel at {ms / b[0]:.2f}x it)")
     return ms, plain_ms, lib_ms, b
 
 
-def phase_k7(tables_pk, prim_idx, dev):
+def phase_k7(scene, prim_idx):
     """13. K7 at the main path's shapes -> (ms, plain_ms, library_ms, bound)
     of the triangle-table gather."""
-    idx = prim_idx.clamp_min(0).to(torch.int32).contiguous()
-    tri = tables_pk.tri_table.contiguous()
-    out = check_k7("triangle rows at the primary hits", tri, idx)
-    mat_id = fetch_tri(tri, idx).mat_id.to(torch.int32).contiguous()
-    check_k7("material rows at the primary hits", tables_pk.mat_table.contiguous(), mat_id)
-    gen = torch.Generator(device=dev).manual_seed(13)
-    big = torch.rand((11_000, 44), generator=gen, device=dev) * 16.0 - 8.0
-    rnd = torch.randint(0, 11_000, (prim_idx.numel(),), generator=gen, device=dev,
-                        dtype=torch.int32)
-    check_k7("(11k, 44) at random indices", big, rnd)
-    return out
+    results = [check_k7(name, table, idx) for name, table, idx in k7_cases(scene, prim_idx)]
+    return results[0]
 
 
 def gradcheck(name, image_of, x0, eps, tol, dev, order_only=False) -> dict:
@@ -622,8 +600,15 @@ def main() -> None:
         log(f"  ptxas: {kernel}: {regs} registers, {stack} bytes stack frame, "
             f"{spill} bytes spill stores, {shared} bytes shared memory a block")
 
-    log("  sass: FP64 instructions per kernel "
-        + json.dumps(fp64_in_sass(build.library_path())))
+    fp64 = fp64_in_sass(build.library_path())
+    log("  sass: FP64 instructions per kernel " + json.dumps(fp64))
+    missing = [k for k in ("trace_k1", "trace_k2", "trace_k3", "trace_k6",
+                           "reproject_variance", "atrous_step", "gather_rows")
+               if not any(name.split("<")[0] == k for name in ptxas)
+               or not any(name.split("<")[0] == k for name in fp64)]
+    if missing or any(fp64.values()):
+        raise AssertionError(f"ptxas / sass report: kernels missing {missing}, "
+                             f"FP64 instructions {fp64}")
 
     def smem(prefix: str) -> dict:
         """{kernel: static shared memory a block} of the kernel or its
@@ -638,6 +623,11 @@ def main() -> None:
     torch.cuda.synchronize()
     log(f"scene: {scene.triangles.count} triangles, {scene.bvh.count} nodes, "
         f"host build + upload {time.perf_counter() - t0:.2f} s")
+    wide = kt.wide_tree(tables.meta.cpu().numpy(), tables.aabb.cpu().numpy())
+    log(f"records: nodes {nbytes(tables.nodes) / 1e6:.3f} MB, K3's wide nodes "
+        f"{wide.records.shape[0]} rows {nbytes(tables.wide) / 1e6:.3f} MB (a walk needs "
+        f"{wide.stack} of its {kt.WIDE_STACK} stack entries), triangles "
+        f"{nbytes(tables.tris) / 1e6:.3f} MB")
     table_bytes = nbytes(tables.meta, tables.aabb, tables.tverts)
 
     camera = OrbitCamera(width=W, height=H).snapshot(dev)
@@ -902,23 +892,19 @@ def main() -> None:
     check_image(out_k, svgf_on=True)
     del r, large, forest, calls
 
-    # ---- 11. K3: bounce-0 env-shadow and continuation rays of paths 2 and 3
-    rays = (orig, d, px, py)
-    sep_calls = recorded_calls(scene, SEPARATE, tables, rays)
-    mis_calls = recorded_calls(scene, MIS, tables, rays)
-    for name, c in (("separate-walk", sep_calls), ("MIS", mis_calls)):
-        if [x[0] for x in c] != ["packets"] + ["batched"] * 5:
-            raise AssertionError(f"{name} frame traversal calls {[x[0] for x in c]}")
-    k3_err, k3_ms, k3_plain_ms, k3_bound = check_class(
-        "K3 separate-walk bounce-0 bounce ray", kt.trace_batched,
-        kt.trace_packets_plain, tables, sep_calls[3][1][1:], any_hit=False)
-    for (_, args, _), what in ((sep_calls[1], "separate-walk bounce-0 env shadow"),
-                               (mis_calls[1], "MIS bounce-0 light shadow"),
-                               (mis_calls[2], "MIS bounce-0 BSDF continuation")):
-        err, *_ = check_class(f"K3 {what}", kt.trace_batched, kt.trace_packets_plain,
-                              tables, args[1:], any_hit=args[4])
+    # ---- 11. K3: the five walks of a separate-walk and of a MIS frame
+    k3_err, k3_frame_ms = 0.0, {}
+    for name, args in k3_walks(scene, SLICE, tables, (orig, d, px, py)):
+        err, ms, plain_ms, b = check_class(f"K3 {name}", kt.trace_batched,
+                                           kt.trace_packets_plain, tables, args,
+                                           any_hit=args[3])
         k3_err = max(k3_err, err)
-    del sep_calls, mis_calls
+        path = name.split()[0]
+        k3_frame_ms[path] = k3_frame_ms.get(path, 0.0) + ms
+        if name == "separate-walk bounce-0 bounce ray":
+            k3_ms, k3_plain_ms, k3_bound = ms, plain_ms, b
+    log("K3, the five walks of a frame: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in k3_frame_ms.items()))
 
     # ---- 12. MIS and separate-walk frames at 800x800
     for name, cfg in (("MIS", MIS), ("separate-walk", SEPARATE)):
@@ -945,7 +931,7 @@ def main() -> None:
         del r
 
     # ---- 13. K7 at the main path's shapes (no path calls it)
-    k7_ms, k7_plain_ms, k7_lib_ms, k7_bound = phase_k7(pack_scene_tables(scene), i_k, dev)
+    k7_ms, k7_plain_ms, k7_lib_ms, k7_bound = phase_k7(scene, i_k)
 
     # ---- 14. the gradient checks, SVGF off
     phase_gradchecks(scene, tables, dev)
@@ -966,7 +952,7 @@ def main() -> None:
         entry("K2 trace_multi", "tpuray_torch/csrc/trace.cu",
               "tpuray/kernels/trace_pallas.py:416", "k2", k2_err, k2_ms, k2_plain_ms,
               k2_bound),
-        entry("K3 trace_batched", "tpuray_torch/csrc/trace.cu",
+        entry("K3 trace_batched", "tpuray_torch/csrc/trace_wide.cu",
               "tpuray/kernels/trace_pallas.py:67", "k3", k3_err, k3_ms, k3_plain_ms,
               k3_bound),
         entry("K4 reproject_variance_fused", "tpuray_torch/csrc/reproject.cu",

@@ -1,10 +1,12 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 K1 (shared-origin primaries), K2 (fused bounce classes, and each class
-against K3 on that class alone), K3 (per-ray origins), K4 and K5 (the
+against K3 on that class alone), K3 (per-ray origins over the wide
+records; also the five walks of a separate-walk and a MIS frame), K4 and K5 (the
 denoiser; also at ragged and tiny sizes and at 1080p, on sky, at every
 history tap, and with no pixel and every pixel taking K4's fallback), K6
 (chunked forests of 8 and 128 chunks), K7 (the one-hot
-hi/lo gather), frames of every path through them, and a train step's
+hi/lo gather at each compile-time width and the run-time one, with ragged
+N, a misaligned table and indices outside the table), frames of every path through them, and a train step's
 gradients through the traversal kernels against the plain tracer's.
 
 Every test here is marked `gpu` and skips without a CUDA device. This file
@@ -35,11 +37,12 @@ from tpuray_torch.kernels import gather as kg
 from tpuray_torch.kernels import reproject as kr
 from tpuray_torch.kernels import trace as kt
 from tpuray_torch.kernels import trace_chunked as ktc
-from tpuray_torch.render.renderer import Renderer
+from tpuray_torch.render.renderer import Renderer, camera_rays
 from tpuray_torch.scene.camera import OrbitCamera
 from tpuray_torch.scene.config import RenderConfig
 from tpuray_torch.scene.procedural import make_large_scene, make_test_scene
 from tpuray_torch.train import optimize
+from tpuray_torch.traversal_times import k3_walks
 
 from tests.test_torch_denoise_tiles import _k4_inputs, _k5_inputs
 
@@ -125,6 +128,38 @@ def test_k1_matches_plain(cuda_scene, any_hit, kernel):
         _assert_closest(t, i, t_p, i_p)
     assert bool((i[torch.from_numpy(dead).cuda()] == -1).all())
     assert float((i_p >= 0).float().mean()) > 0.2
+
+
+@pytest.mark.parametrize("path", ["separate-walk", "MIS"])
+def test_k3_frame_walks_match_plain(cuda_scene, path):
+    """The five K3 walks of one 160x120 frame (traversal_times.k3_walks,
+    recorded from trace_paths): each through the wide walk against the
+    plain version, one launch a walk."""
+    scene, tables = cuda_scene
+    cfg = RenderConfig(width=160, height=120, compact_frac=0.0, compact_auto=False)
+    cam = OrbitCamera(width=160, height=120, yaw_deg=20.0).snapshot("cuda")
+    walks = [a for name, a in k3_walks(scene, cfg, tables, camera_rays(cam, 120, 160))
+             if name.startswith(path)]
+    assert len(walks) == 5
+    for orig, d, tm, any_hit in walks:
+        kt.reset_launches()
+        t, i = kt.trace_batched(tables, orig, d, tm, any_hit)
+        assert kt.LAUNCHES["k3"] == 1
+        t_p, i_p = kt.trace_packets_plain(tables, orig, d, tm, any_hit)
+        torch.cuda.synchronize()
+        if any_hit:
+            assert torch.equal(i >= 0, i_p >= 0)
+        else:
+            _assert_closest(t, i, t_p, i_p)
+            assert torch.equal(t, t_p)
+        assert bool((i[tm <= 0] == -1).all())
+
+
+def test_k3_needs_wide_records(cuda_scene):
+    _, tables = cuda_scene
+    d = torch.zeros((8, 3), device="cuda")
+    with pytest.raises(ValueError, match="wide records"):
+        kt.trace_batched(dataclasses.replace(tables, wide=None), d, d, 1e30)
 
 
 @pytest.mark.parametrize("ah", [(False, True, True), (True, True), (False,),
@@ -479,11 +514,16 @@ def test_slice3_frames_match_plain(cuda_scene, cuda_forest, case):
 
 
 @pytest.mark.parametrize("t_rows,w,n", [(1000, 26, 3000), (2048, 8, 4096),
-                                        (600, 44, 777), (20482, 26, 65536)])
+                                        (600, 44, 777), (20482, 26, 65536),
+                                        (7, 18, 65_536 + 13), (300, 18, 31),
+                                        (11_000, 44, 100_003), (513, 27, 95),
+                                        (64, 1, 1000), (40, 130, 333)])
 def test_k7_matches_plain(cuda_scene, t_rows, w, n):
+    """Each compile-time width (26, 18, 44) and the run-time one, with N
+    that leaves a warp's last rows empty."""
     rng = np.random.default_rng(t_rows)
     table = rng.uniform(-8, 8, (t_rows, w)).astype(np.float32)
-    table[0, :4] = [1.0 / 3.0, 0.1, 1e-40, -0.0]  # a third, a subnormal, -0
+    table[0, :4] = [1.0 / 3.0, 0.1, 1e-40, -0.0][:w]  # a third, a subnormal, -0
     idx = rng.integers(0, t_rows, n).astype(np.int32)
     idx[::9] = -1
     idx[1::9] = t_rows + 3
@@ -496,6 +536,25 @@ def test_k7_matches_plain(cuda_scene, t_rows, w, n):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert bool((got[::9] == 0).all()) and not torch.equal(got, tg[ig.clamp(0, t_rows - 1).long()])
+
+
+@pytest.mark.parametrize("w", [18, 26, 44, 7])
+def test_k7_out_of_range_and_misaligned(cuda_scene, w):
+    """Indices outside [0, T) at both ends of int32 give zero rows; a table
+    that starts 4 bytes into its storage (too little alignment for vector
+    loads) takes the run-time instance with the same result."""
+    t_rows = 97
+    rng = np.random.default_rng(w)
+    store = torch.from_numpy(rng.uniform(-8, 8, (t_rows + 1) * w + 1).astype(np.float32)).cuda()
+    idx = torch.from_numpy(np.asarray(
+        [0, t_rows - 1, t_rows, -1, -t_rows, 2 ** 31 - 1, -2 ** 31, 5] * 9, np.int32)).cuda()
+    bad = (idx < 0) | (idx >= t_rows)
+    for table in (store[:t_rows * w].view(t_rows, w), store[1:1 + t_rows * w].view(t_rows, w)):
+        got = kg.onehot_gather(table, idx)
+        want = kg.onehot_gather_plain(table, idx)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert bool((got[bad] == 0).all()) and bool((got[~bad] != 0).all())
 
 
 def test_k7_checks_its_inputs(cuda_scene):

@@ -1,8 +1,10 @@
-// Device code shared by the traversal kernels: K1 and K3 (trace.cu), K2
-// (trace.cu) and K6 (trace_chunked.cu). All four run one walk
+// Device code shared by the traversal kernels: K1 and K2 (trace.cu), K6
+// (trace_chunked.cu) and K3 (trace_wide.cu). K1, K2 and K6 run one walk
 // (walk_subtree) over the same packed records; they differ in where a
 // thread's origin, direction and t_max come from and in which tree
-// (single tree, or a forest under its top-level tree) they walk.
+// (single tree, or a forest under its top-level tree) they walk. K3 walks
+// 4-wide records of the same tree (trace_wide.cu) with this file's ray,
+// slab and triangle tests.
 //
 // Records (kernels/trace.py:pack_tables, trace_chunked.py:pack_forest).
 // The SoA tables that the plain versions read (meta (5, n), aabb (6, n),
@@ -42,6 +44,7 @@ constexpr int kBlock = 128;
 
 struct Tables {
   const float4* __restrict__ nodes;    // (R, 4): one 64-byte record per node row
+                                       // (K3: (R4, 8), one 128-byte wide record)
   const float4* __restrict__ tris;     // (T, 3): one 48-byte record per triangle
   const float* __restrict__ root_box;  // (6,) the root's box: min xyz, max xyz
   int root;                            // the root's ref (leaf refs < 0)
@@ -102,9 +105,11 @@ __device__ __forceinline__ bool tri_test(const Tri& tr, const Ray& r, float* t_h
   return !invalid && (t >= kTMin) && in_tri;
 }
 
-// intersect.ray_aabb: the box [lo, hi] overlaps (0, limit] along the ray
-__device__ __forceinline__ bool slab(float lox, float hix, float loy, float hiy,
-                                     float loz, float hiz, const Ray& r, float limit) {
+// intersect.ray_aabb: the box [lo, hi] overlaps (0, limit] along the ray;
+// *t_entry gets the slab's entry distance t0 (K3 orders children by it)
+__device__ __forceinline__ bool slab_t0(float lox, float hix, float loy, float hiy,
+                                        float loz, float hiz, const Ray& r, float limit,
+                                        float* t_entry) {
   const float f0 = (hix - r.ox) * r.ix;
   const float n0 = (lox - r.ox) * r.ix;
   const float f1 = (hiy - r.oy) * r.iy;
@@ -113,7 +118,14 @@ __device__ __forceinline__ bool slab(float lox, float hix, float loy, float hiy,
   const float n2 = (loz - r.oz) * r.iz;
   const float t1 = fminf(fmaxf(f0, n0), fminf(fmaxf(f1, n1), fmaxf(f2, n2)));
   const float t0 = fmaxf(fminf(f0, n0), fmaxf(fminf(f1, n1), fminf(f2, n2)));
+  *t_entry = t0;
   return (t1 >= fmaxf(t0, 0.0f)) && (t0 < limit) && (t1 > 0.0f);
+}
+
+__device__ __forceinline__ bool slab(float lox, float hix, float loy, float hiy,
+                                     float loz, float hiz, const Ray& r, float limit) {
+  float t0;
+  return slab_t0(lox, hix, loy, hiy, loz, hiz, r, limit, &t0);
 }
 
 // Scan leaf ~ref's triangles: update (*t, *idx) on strictly closer hits

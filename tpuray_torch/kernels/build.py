@@ -22,9 +22,9 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = tuple(_PKG / "csrc" / f for f in ("trace.cu", "trace_chunked.cu",
-                                             "reproject.cu", "atrous.cu",
-                                             "gather.cu"))
+SOURCES = tuple(_PKG / "csrc" / f for f in ("trace.cu", "trace_wide.cu",
+                                             "trace_chunked.cu", "reproject.cu",
+                                             "atrous.cu", "gather.cu"))
 HEADERS = tuple(_PKG / "csrc" / f for f in ("trace_common.cuh", "denoise_common.cuh"))
 BUILD_ROOT = _PKG.parent / "build" / "tpuray_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -33,7 +33,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_L = ctypes.c_longlong
 _SIGNATURES = {
     "tpuray_trace_packets": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P],
     "tpuray_trace_batched": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P],
@@ -43,7 +42,7 @@ _SIGNATURES = {
     "tpuray_reproject_variance": [_P] * 20 + [_I, _I, _F, _F, _F, _F, _F, _I,
                                               _F, _I, _P],
     "tpuray_atrous_step": [_P] * 7 + [_I, _I, _I, _F, _I, _F, _I, _P],
-    "tpuray_onehot_gather": [_P, _P, _P, _I, _I, _L, _P],
+    "tpuray_onehot_gather": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -65,9 +65,14 @@ def onehot_gather(table: Tensor, idx: Tensor) -> Tensor:
                          f"{tuple(table.shape)} and {tuple(idx.shape)}")
     n_rows, w = table.shape
     n = idx.shape[0]
+    if max(n, n_rows) >= 2 ** 31:
+        raise ValueError(f"onehot_gather (K7) takes fewer than 2^31 rows and "
+                         f"indices, got {n_rows} and {n}")
     build.check(table, "table", torch.float32, (n_rows, w), dev)
     build.check(idx, "idx", torch.int32, (n,), dev)
     out = torch.empty((n, w), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
     with torch.cuda.device(dev):
         rc = build.load().tpuray_onehot_gather(
             table.data_ptr(), idx.data_ptr(), out.data_ptr(), n_rows, w, n,

@@ -2,7 +2,9 @@
 (trace_batched) on a single tree.
 
 Counterpart of tpuray/kernels/trace_pallas.py. The CUDA kernels live in
-csrc/trace.cu (see its header for the design); each wrapper here
+csrc/trace.cu (K1, K2) and csrc/trace_wide.cu (K3, which walks the same
+tree collapsed into 4-wide records, wide_tree); see their headers for the
+designs. Each wrapper here
 
 - runs the plain PyTorch version (integrator/intersect.py's skip-link
   wavefront) when its tensors lie on the CPU;
@@ -39,6 +41,9 @@ Tensor = torch.Tensor
 MAX_STACK = 128  # per-thread DFS stack in the kernels; checked at pack time
 MAX_LEAF = 8     # builder leaf size; checked at pack time
 LEAF_BITS = 4    # a leaf ref packs its count (<= MAX_LEAF) in this many bits
+WIDE = 4         # children of a wide node (K3)
+WIDE_STACK = 64  # K3's per-thread stack (csrc/trace_wide.cu); checked at pack time
+WIDE_EMPTY = -1  # the ref of an unused wide slot (a leaf ref is -1 only with no triangle)
 
 # kernel launches since the last reset (the plain path never counts)
 LAUNCHES = {"k1": 0, "k2": 0, "k3": 0}
@@ -54,8 +59,9 @@ class TraceTables:
     """The kernels' scene operands (pack_scene, or trace_chunked.pack_forest
     for a forest). The plain versions read the SoA rows (meta, aabb, tverts
     and the skip links); the kernels read the packed records (nodes, tris,
-    root_box, root; csrc/trace_common.cuh). Indices are global: first_tri,
-    right and every ref point into the whole tables."""
+    root_box, root; csrc/trace_common.cuh), K3 the wide records in place of
+    nodes (wide, wide_root; csrc/trace_wide.cu). Indices are global:
+    first_tri, right and every ref point into the whole tables."""
 
     meta: Tensor    # (5, n_nodes) int32 [first_tri; tri_count; right; axis; left_low]
     aabb: Tensor    # (6, n_nodes) f32 [amin xyz; amax xyz]
@@ -67,6 +73,8 @@ class TraceTables:
     root: int       # the walk's root ref (leaf_ref(...) when the root is a leaf)
     chunk_nodes: int = 0  # > 0: a uniform forest of chunks this many nodes long
     chunk_tris: int = 0
+    wide: Tensor | None = None  # (R4, 32) int32 bits: K3's 4-wide records (pack_scene)
+    wide_root: int = 0          # K3's root ref: a wide row, or the root leaf's ref
 
     @property
     def n_nodes(self) -> int:
@@ -154,6 +162,71 @@ def node_records(meta: Tensor, aabb: Tensor) -> Tensor:
     return torch.where(inner[:, None], rec, 0).contiguous()
 
 
+@dataclasses.dataclass(frozen=True)
+class WideTree:
+    """The binary tree collapsed into 4-wide nodes (wide_tree)."""
+
+    records: np.ndarray  # (R4, 32) int32: one 128-byte record per wide node
+    root: int            # row 0, or the root leaf's ref when the root is a leaf
+    stack: int           # the most entries K3's stack can hold, in any child order
+
+
+def wide_tree(meta: np.ndarray, aabb: np.ndarray) -> WideTree:
+    """K3's records (csrc/trace_wide.cu) from a binary tree's SoA rows
+    meta (5, n) and aabb (6, n): each wide node starts from a binary inner
+    node's two children and replaces the inner child of largest surface
+    area by its two children until it has WIDE children or only leaves.
+    Each record holds its children's boxes as f32 bits, min x, max x,
+    min y, max y, min z, max z, four of each (the binary nodes' own boxes,
+    +inf in unused slots), then the four child refs (a wide row, a
+    leaf_ref, or WIDE_EMPTY) and four zeros. Wide rows are numbered level
+    by level. Raises if a walk could need more than WIDE_STACK entries."""
+    first, count, right = (meta[k].astype(np.int64) for k in range(3))
+    lo, hi = aabb[:3].T, aabb[3:].T
+    ext = (hi - lo).astype(np.float64)
+    area = ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2] + ext[:, 2] * ext[:, 0]
+    if count[0] > 0:
+        return WideTree(np.zeros((0, 8 * WIDE), np.int32),
+                        int(leaf_ref(first[0], count[0])), 0)
+    levels, frontier = [], np.zeros(1, np.int64)
+    while frontier.size:
+        rows = np.arange(frontier.size)
+        kids = np.full((frontier.size, WIDE), -1, np.int64)
+        kids[:, 0], kids[:, 1] = frontier + 1, right[frontier]
+        for slot in range(2, WIDE):
+            a = np.where(count[kids[:, :slot]] == 0, area[kids[:, :slot]], -1.0)
+            best = np.argmax(a, axis=1)
+            grow = a[rows, best] >= 0.0
+            b = kids[rows[grow], best[grow]]
+            kids[rows[grow], best[grow]] = b + 1
+            kids[rows[grow], slot] = right[b]
+        inner = (kids >= 0) & (count[np.maximum(kids, 0)] == 0)
+        levels.append((kids, inner))
+        frontier = kids[inner]
+    starts = np.cumsum([0] + [k.shape[0] for k, _ in levels])
+    records, need = [], np.zeros(0, np.int64)
+    for level in range(len(levels) - 1, -1, -1):  # bottom-up: stack need
+        kids, inner = levels[level]
+        safe = np.maximum(kids, 0)
+        row = np.full(kids.shape, -1, np.int64)
+        row[inner] = starts[level + 1] + np.arange(int(inner.sum()))
+        refs = np.where(inner, row, np.where(kids >= 0, leaf_ref(first[safe], count[safe]),
+                                             WIDE_EMPTY))
+        box = np.where((kids >= 0)[..., None], np.concatenate([lo, hi], 1)[safe],
+                       np.float32(np.inf)).astype(np.float32)  # (F, WIDE, 6)
+        bounds = box[:, :, [0, 3, 1, 4, 2, 5]].transpose(0, 2, 1).reshape(-1, 6 * WIDE)
+        records.append(np.concatenate([bounds.view(np.int32), refs.astype(np.int32),
+                                       np.zeros((kids.shape[0], WIDE), np.int32)], 1))
+        below = np.where(inner, need[np.maximum(row - starts[level + 1], 0)]
+                         if need.size else 0, -1)
+        n_in = inner.sum(1)
+        need = np.where(n_in > 0, n_in - 1 + below.max(1), 0)
+    if need[0] > WIDE_STACK:
+        raise ValueError(f"the wide BVH needs a stack of {need[0]} > "
+                         f"WIDE_STACK={WIDE_STACK}")
+    return WideTree(np.concatenate(records[::-1]), 0, int(need[0]))
+
+
 def pack_tables(bvh, tri) -> TraceTables:
     """The scene in the kernels' operand layout, on its device, with no
     tree checks (pack_scene and trace_chunked.pack_forest check their
@@ -188,12 +261,16 @@ def pack_tables(bvh, tri) -> TraceTables:
 
 
 def pack_scene(bvh, tri) -> TraceTables:
-    """Check a single tree (_check_tree) and pack it (pack_tables)."""
+    """Check a single tree (_check_tree) and pack it (pack_tables), with
+    K3's wide records (wide_tree)."""
     if bvh.chunk_nodes:
         raise ValueError("pack_scene takes a single tree; pack a chunked "
                          "forest with kernels/trace_chunked.py:pack_forest")
     _check_tree(bvh.skip.cpu().numpy(), bvh.tri_count.cpu().numpy())
-    return pack_tables(bvh, tri)
+    tables = pack_tables(bvh, tri)
+    wide = wide_tree(tables.meta.cpu().numpy(), tables.aabb.detach().cpu().numpy())
+    return dataclasses.replace(tables, wide=torch.from_numpy(wide.records).to(
+        tables.meta.device), wide_root=wide.root)
 
 
 def _constants(tables: TraceTables) -> dict[str, Tensor]:
@@ -264,14 +341,27 @@ def _ptr(x: Tensor | None):
     return None if x is None else x.data_ptr()
 
 
+def wide_args(tables: TraceTables) -> tuple:
+    """K3's scene arguments: wide, tris, root_box, wide_root."""
+    return (tables.wide.data_ptr(), tables.tris.data_ptr(),
+            tables.root_box.data_ptr(), tables.wide_root)
+
+
 def _launch_single(entry: str, key: str, tables: TraceTables, orig: Tensor,
                    d: Tensor, t_max: Tensor | float, any_hit: bool
                    ) -> tuple[Tensor, Tensor]:
-    """Check, allocate and launch K1 (orig (1, 3)) or K3 (orig (N, 3))."""
+    """Check, allocate and launch K1 (orig (1, 3), the binary records) or
+    K3 (orig (N, 3), the wide records)."""
     dev = d.device
     n = d.shape[0]
     t_max = _rays_tmax(t_max, n, dev)
     _check_tables(tables, dev)
+    if key == "k3":
+        if tables.wide is None:
+            raise ValueError("trace_batched (K3) walks pack_scene's wide records; "
+                             "these tables have none")
+        build.check(tables.wide, "wide", torch.int32,
+                    (tables.wide.shape[0], 8 * WIDE), dev)
     build.check(orig, "orig", torch.float32, (1 if key == "k1" else n, 3), dev)
     build.check(d, "d", torch.float32, (n, 3), dev)
     t_out = torch.empty(n, dtype=torch.float32, device=dev)
@@ -280,7 +370,8 @@ def _launch_single(entry: str, key: str, tables: TraceTables, orig: Tensor,
         return t_out, idx_out
     with torch.cuda.device(dev):
         rc = getattr(build.load(), entry)(
-            *record_args(tables), orig.data_ptr(), d.data_ptr(),
+            *(wide_args(tables) if key == "k3" else record_args(tables)),
+            orig.data_ptr(), d.data_ptr(),
             t_max.data_ptr(), t_out.data_ptr(), idx_out.data_ptr(), n,
             int(any_hit),
             torch.cuda.current_stream(dev).cuda_stream)
@@ -318,7 +409,9 @@ def trace_batched(tables: TraceTables, orig: Tensor, d: Tensor,
                   t_max: Tensor | float, any_hit: bool = False
                   ) -> tuple[Tensor, Tensor]:
     """K3: K1's trace for incoherent rays with per-ray origins orig (N, 3)
-    (shadow and bounce rays). Same outputs and dead-lane rule as K1."""
+    (shadow and bounce rays), over pack_scene's wide records on the card.
+    Same outputs and dead-lane rule as K1; idx may differ from K1's or
+    K2's walk of the same rays only at exact-t ties."""
     if d.device.type == "cpu":
         return trace_packets_plain(tables, orig, d, t_max, any_hit)
     if d.device.type != "cuda":
@@ -337,7 +430,7 @@ def trace_multi(tables: TraceTables, orig: Tensor, dirs: Sequence[Tensor],
     any_hits[c] selects any-hit for class c. Returns [(t, idx)] per class,
     each equal to its own single-class trace: on the card, K1's walk in
     one thread per (ray, class), so each class equals trace_batched of that
-    class alone."""
+    class alone up to exact-t ties (K3 walks the wide records)."""
     m = len(dirs)
     if not (1 <= m <= 3 and len(t_maxs) == m and len(any_hits) == m):
         raise ValueError(f"trace_multi takes 1..3 classes, got {m}")

@@ -1,11 +1,13 @@
 """Where a moving-camera frame's time goes, on the card.
 
     python -m tpuray_torch.profile_frames [--frames 8] [--size 800] [--out DIR]
+        [--runs svgf_off,svgf_on,mis,separate,forest_131k,train_step]
 
 Renders size x size frames, moving the camera 0.5 degrees a frame, for
 each run: the chip_smoke.py test scene (20,482 triangles) with SVGF off,
-with SVGF on (the default view, compaction off) and under the MIS
-integrator (SVGF on); the 131k-triangle forest
+with SVGF on (the default view, compaction off), under the MIS
+integrator and with the separate walks (fused_secondary=False; SVGF on
+for both); the 131k-triangle forest
 (make_large_scene(25 spheres, subdiv 4), SVGF on, OrbitCamera radius 4);
 and a train step on the test scene (chip_smoke.py phase 15: render_flat,
 its MSE's backward through every material and light field, Adam on
@@ -17,13 +19,18 @@ unprofiled wall time), each hand-written kernel's share of the device time
 and its device ms per frame, and the kernels that take the most device
 time. What SVGF on adds over
 SVGF off is the denoiser's share. The profiler's tables go to DIR
-(default build/profile, which git ignores). Needs a CUDA device.
+(default build/profile, which git ignores). --runs picks the runs
+(default: all). Another checkout's kernels go through the same runs with
+`PYTHONPATH=DIR python3 tpuray_torch/profile_frames.py` (DIR unpacked with
+`git archive`; its hand-written kernels are named as its build names
+them). Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
 import collections
 import dataclasses
+import re
 import statistics
 import time
 from pathlib import Path
@@ -31,6 +38,7 @@ from pathlib import Path
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+import tpuray_torch
 from tpuray_torch.kernels import atrous as ka
 from tpuray_torch.kernels import reproject as kr
 from tpuray_torch.kernels import trace as kt
@@ -41,9 +49,17 @@ from tpuray_torch.scene.config import RenderConfig
 from tpuray_torch.scene.procedural import make_large_scene, make_test_scene
 from tpuray_torch.train import optimize
 
-# device-kernel name prefixes of the hand-written kernels (csrc/*.cu)
-_OURS = {"K1/K3": "trace_k1", "K2": "trace_k2", "K6": "trace_k6",
-         "K4": "reproject_variance", "K5": "atrous_step", "K7": "onehot_gather_k7"}
+# device-kernel names of the hand-written kernels (csrc/*.cu)
+_OURS = {"K1": "trace_k1", "K2": "trace_k2", "K3": "trace_k3", "K6": "trace_k6",
+         "K4": "reproject_variance", "K5": "atrous_step", "K7": "gather_rows"}
+
+
+def _which(name: str) -> str | None:
+    """The hand-written kernel a device kernel's name belongs to (checkouts
+    without trace_k3 ran K3 as trace_k1<any_hit, false>)."""
+    if re.search(r"trace_k1<\w+, false>", name):
+        return "K3"
+    return next((k for k, v in _OURS.items() if v in name), None)
 
 
 def _kernels(prof) -> list[tuple[str, float]]:
@@ -101,8 +117,8 @@ class _Run:
               f"{res['kernels_per_frame']:.1f} device kernels and "
               f"{device_ms:.3f} device ms per frame; busy share "
               f"{res['busy_share']:.3f}; launches {res['launches']}", flush=True)
-        ours = {k: sum(us for name, us in kernels if v in name) / 1e3 / frames
-                for k, v in _OURS.items()}
+        ours = {k: sum(us for name, us in kernels if _which(name) == k) / 1e3 / frames
+                for k in _OURS}
         print(f"[{tag}]   share of device time (device ms per frame): "
               + ", ".join(f"{k} {ms / device_ms:.3f} ({ms:.4f})" for k, ms in ours.items() if ms),
               flush=True)
@@ -143,27 +159,37 @@ def main() -> None:
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--size", type=int, default=800)
     ap.add_argument("--out", type=Path, default=Path("build/profile"))
+    ap.add_argument("--runs", default="svgf_off,svgf_on,mis,separate,forest_131k,train_step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_frames needs a CUDA device")
-    print(f"device {torch.cuda.get_device_name(0)}", flush=True)
+    print(f"tree {Path(tpuray_torch.__file__).parents[1]}; device "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
     cfg = RenderConfig(width=args.size, height=args.size, compact_frac=0.0,
                        compact_auto=False)
     test = make_test_scene(subdiv=5, env_width=512, device="cuda")
-    large = make_large_scene(n_spheres=25, subdiv=4, env_width=512, device="cuda")
-    runs = [_Run(test, dataclasses.replace(cfg, enable_svgf=False), "svgf_off"),
-            _Run(test, cfg, "svgf_on"),
-            _Run(test, dataclasses.replace(cfg, integrator="mis"), "mis"),
-            _Run(large, cfg, "forest_131k", radius=4.0),
-            _TrainRun(test, cfg, "train_step")]
+    make = {
+        "svgf_off": lambda: _Run(test, dataclasses.replace(cfg, enable_svgf=False), "svgf_off"),
+        "svgf_on": lambda: _Run(test, cfg, "svgf_on"),
+        "mis": lambda: _Run(test, dataclasses.replace(cfg, integrator="mis"), "mis"),
+        "separate": lambda: _Run(test, dataclasses.replace(cfg, fused_secondary=False),
+                                 "separate"),
+        "forest_131k": lambda: _Run(make_large_scene(n_spheres=25, subdiv=4, env_width=512,
+                                                     device="cuda"), cfg, "forest_131k",
+                                    radius=4.0),
+        "train_step": lambda: _TrainRun(test, cfg, "train_step"),
+    }
+    runs = [make[tag]() for tag in args.runs.split(",")]
     # all host-clock timing first: the profiler leaves Python objects behind
     walls = [run.time_frames(args.frames) for run in runs]
-    off, on = [run.profile_frames(args.frames, wall, args.out)
-               for run, wall in zip(runs, walls)][:2]
-    print(f"the denoiser adds {on['kernels_per_frame'] - off['kernels_per_frame']:.1f} "
-          f"device kernels, {on['device_ms_per_frame'] - off['device_ms_per_frame']:.3f} "
-          f"device ms and {on['wall_ms'] - off['wall_ms']:.3f} wall ms per frame",
-          flush=True)
+    res = {run.tag: run.profile_frames(args.frames, wall, args.out)
+           for run, wall in zip(runs, walls)}
+    if "svgf_off" in res and "svgf_on" in res:
+        off, on = res["svgf_off"], res["svgf_on"]
+        print(f"the denoiser adds {on['kernels_per_frame'] - off['kernels_per_frame']:.1f} "
+              f"device kernels, {on['device_ms_per_frame'] - off['device_ms_per_frame']:.3f} "
+              f"device ms and {on['wall_ms'] - off['wall_ms']:.3f} wall ms per frame",
+              flush=True)
 
 
 if __name__ == "__main__":

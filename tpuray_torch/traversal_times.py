@@ -1,22 +1,28 @@
 """Device times of the traversal kernels K1, K2, K3 and K6 on the main
-paths' rays, to compare two versions of the kernels in one call.
+paths' rays, and of the K7 gather, to compare two versions of the kernels
+in one call.
 
-    python3 tpuray_torch/traversal_times.py [--tree DIR]
+    python3 tpuray_torch/traversal_times.py [--tree DIR] [--parts k1,k2,k3,k6,k7]
 
 --tree DIR imports tpuray_torch from DIR, a checkout of another commit
 (for example the parent, unpacked with `git archive` into the git-ignored
 build/), so the same rays go through that version's kernels; the script
-calls only entry points that every version since slice 3 has. The rays:
+calls only entry points that every version since slice 4 has. The rays:
 the 800x800 camera primaries of the test scene (20,482 triangles; K1),
 the default view's bounce-0 classes (K2, and K3 on each class alone), the
-separate-walk bounce-0 bounce ray (K3), the six K6 walks of a 131k-forest
-frame (primaries, bounce-0 env shadow, point shadow and bounce ray,
-bounce-1 env and point shadow) and the 524k forest's primaries and
-bounce-0 bounce ray. Each time is the mean device time of 20 launches
-between two CUDA events, after 3 warm-ups, queued behind a spin kernel so
-that the host's launch overhead does not count (kernel_ms, which
-chip_smoke.py and denoise_times.py use too).
-Prints one line per walk, then one JSON line {walk: ms}. Needs a CUDA
+five K3 walks of one separate-walk frame and of one MIS frame (each
+recorded from trace_paths, in the frame's order), the six K6 walks of a
+131k-forest frame (primaries, bounce-0 env shadow, point shadow and bounce
+ray, bounce-1 env and point shadow) and the 524k forest's primaries and
+bounce-0 bounce ray. K7 and its library yardstick table[idx] on
+chip_smoke.py's three phase-13 cases (k7_cases). Each time is the mean
+device time of 20 launches between two CUDA events, after 3 warm-ups,
+queued behind a spin kernel so that the host's launch overhead does not
+count (kernel_ms, which chip_smoke.py and denoise_times.py use too).
+--parts picks the groups to time (default: all but k3split, which times
+each K3 walk again with every lane dead and with its live rays alone,
+packed into a dense array).
+Prints one line per time, then one JSON line {name: ms}. Needs a CUDA
 device.
 """
 from __future__ import annotations
@@ -90,10 +96,64 @@ def recorded_calls(scene, cfg, tables, rays) -> list:
     return calls
 
 
+# the five per-ray-origin walks of a depth-2 frame (trace_paths' calls 1-5,
+# after the primaries), each K3 on a single tree
+SEPARATE_WALKS = ("bounce-0 env shadow", "bounce-0 point shadow",
+                  "bounce-0 bounce ray", "bounce-1 env shadow",
+                  "bounce-1 point shadow")
+MIS_WALKS = ("bounce-0 light shadow", "bounce-0 BSDF continuation",
+             "bounce-1 bounce ray", "bounce-1 light shadow",
+             "bounce-1 BSDF continuation")
+
+
+def k3_walks(scene, cfg, tables, rays) -> list:
+    """[(name, (orig, d, t_max, any_hit))] of the five K3 walks of one
+    separate-walk and one MIS frame, each t_max a per-ray tensor (a float
+    t_max is copied to the card, and waited for, on every call)."""
+    import torch
+    walks = []
+    for path, cfg_p, names in (
+            ("separate-walk", dataclasses.replace(cfg, fused_secondary=False),
+             SEPARATE_WALKS),
+            ("MIS", dataclasses.replace(cfg, integrator="mis"), MIS_WALKS)):
+        calls = recorded_calls(scene, cfg_p, tables, rays)
+        if [c[0] for c in calls] != ["packets"] + ["batched"] * 5:
+            raise AssertionError(f"{path} frame traversal calls {[c[0] for c in calls]}")
+        for (_, args, _), name in zip(calls[1:], names):
+            orig, d, tm, any_hit = args[1:5]
+            if not isinstance(tm, torch.Tensor):
+                tm = torch.full((d.shape[0],), tm, device=d.device)
+            walks.append((f"{path} {name}", (orig, d, tm, any_hit)))
+    return walks
+
+
+def k7_cases(scene, prim_idx) -> list:
+    """[(name, table, idx)]: chip_smoke.py's phase-13 inputs of K7, the
+    triangle table (T, 26) at the clamped primary hit indices prim_idx, the
+    material table (M, 18) at those hits' mat_id, and an (11k, 44) table
+    at as many random indices (seeded)."""
+    import torch
+    from tpuray_torch.integrator.gather_tables import fetch_tri, pack_scene_tables
+    dev = prim_idx.device
+    pk = pack_scene_tables(scene)
+    idx = prim_idx.clamp_min(0).to(torch.int32).contiguous()
+    tri = pk.tri_table.contiguous()
+    mat_id = fetch_tri(tri, idx).mat_id.to(torch.int32).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    big = torch.rand((11_000, 44), generator=gen, device=dev) * 16.0 - 8.0
+    rnd = torch.randint(0, 11_000, (idx.numel(),), generator=gen, device=dev,
+                        dtype=torch.int32)
+    return [("triangle rows at the primary hits", tri, idx),
+            ("material rows at the primary hits", pk.mat_table.contiguous(), mat_id),
+            ("(11k, 44) at random indices", big, rnd)]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", type=Path, default=Path(__file__).resolve().parents[1])
+    ap.add_argument("--parts", default="k1,k2,k3,k6,k7")
     args = ap.parse_args()
+    parts = set(args.parts.split(","))
     sys.path.insert(0, str(args.tree.resolve()))
     import torch
     if not torch.cuda.is_available():
@@ -101,6 +161,7 @@ def main() -> None:
     from tpuray_torch.integrator import path_tracer as pt
     from tpuray_torch.integrator.intersect import INF
     from tpuray_torch.kernels import build
+    from tpuray_torch.kernels import gather as kg
     from tpuray_torch.kernels import trace as kt
     from tpuray_torch.kernels import trace_chunked as ktc
     from tpuray_torch.render.renderer import camera_rays
@@ -125,21 +186,43 @@ def main() -> None:
     rays = camera_rays(OrbitCamera(width=W, height=H).snapshot(dev), H, W)
     orig, d = rays[0], rays[1]
     inf_rays = torch.full((d.shape[0],), INF, device=dev)  # a float t_max waits on a copy
-    timed("K1 primaries", lambda: kt.trace_packets(tables, orig, d, inf_rays,
-                                                   common_origin=True))
-    _, o2, dirs, tms, ah = recorded_calls(scene, cfg, tables, rays)[1][1]
-    timed("K2 bounce 0, 3 classes", lambda: kt.trace_multi(tables, o2, dirs, tms, ah))
-    for c, name in enumerate(("bounce ray", "env shadow", "point shadow")):
-        timed(f"K3 bounce-0 {name} alone", lambda c=c: kt.trace_batched(
-            tables, o2, dirs[c], tms[c], ah[c]))
-    sep = recorded_calls(scene, dataclasses.replace(cfg, fused_secondary=False),
-                         tables, rays)
-    timed("K3 separate-walk bounce-0 bounce ray",
-          lambda: kt.trace_batched(tables, *sep[3][1][1:]))
-    del scene, tables, sep
+    if "k1" in parts:
+        timed("K1 primaries", lambda: kt.trace_packets(tables, orig, d, inf_rays,
+                                                       common_origin=True))
+    if "k2" in parts:
+        _, o2, dirs, tms, ah = recorded_calls(scene, cfg, tables, rays)[1][1]
+        timed("K2 bounce 0, 3 classes", lambda: kt.trace_multi(tables, o2, dirs, tms, ah))
+        for c, name in enumerate(("bounce ray", "env shadow", "point shadow")):
+            timed(f"K3 bounce-0 {name} alone", lambda c=c: kt.trace_batched(
+                tables, o2, dirs[c], tms[c], ah[c]))
+    if "k3" in parts:
+        walks = k3_walks(scene, cfg, tables, rays)
+        for name, a in walks:
+            timed(f"K3 {name}", lambda a=a: kt.trace_batched(tables, *a))
+        for path in ("separate-walk", "MIS"):
+            mine = [a for name, a in walks if name.startswith(path)]
+            timed(f"K3 {path} frame, 5 walks",
+                  lambda mine=mine: [kt.trace_batched(tables, *a) for a in mine])
+    if "k3split" in parts:  # what a K3 walk's time is made of
+        for name, (o, d3, tm, ah) in k3_walks(scene, cfg, tables, rays):
+            live = tm > 0
+            dead = torch.zeros_like(tm)
+            packed = [x[live].contiguous() for x in (o, d3, tm)]
+            timed(f"K3 {name}, every lane dead",
+                  lambda o=o, d3=d3, dead=dead, ah=ah: kt.trace_batched(tables, o, d3, dead, ah))
+            timed(f"K3 {name}, its {int(live.sum())} live rays alone",
+                  lambda packed=packed, ah=ah: kt.trace_batched(tables, *packed, ah))
+    if "k7" in parts:
+        prim_idx = kt.trace_packets(tables, orig, d, inf_rays, common_origin=True)[1]
+        for name, table, idx in k7_cases(scene, prim_idx):
+            timed(f"K7 {name}", lambda table=table, idx=idx: kg.onehot_gather(table, idx))
+            timed(f"table[idx] {name}", lambda table=table, idx=idx: table[idx])
+    del scene, tables
 
     cam_l = OrbitCamera(width=W, height=H, radius=4.0).snapshot(dev)
     for tag, subdiv, walks in (("131k", 4, range(6)), ("524k", 5, (0, 3))):
+        if "k6" not in parts:
+            break
         large = make_large_scene(n_spheres=25, subdiv=subdiv, env_width=512, device=dev)
         forest = pt.pack_traversal(large)
         calls = recorded_calls(large, cfg, forest, camera_rays(cam_l, H, W))
