@@ -7,8 +7,12 @@ Builds the CUDA kernels from csrc/ with nvcc (one process per source) and
 prints each kernel's registers, stack frame, spill stores and shared memory
 a block (ptxas -v; every kernel's shared memory is static) and the FP64
 instructions in its SASS (cuobjdump -sass), then:
-  1. K1 (trace_packets) on the 640,000 camera primaries of an 800x800 frame
-     of the 20,482-triangle test scene, against its plain PyTorch version;
+  1. K1 (trace_packets, the warp walk) on the 640,000 camera primaries of
+     an 800x800 frame of the 20,482-triangle test scene, against its plain
+     PyTorch version, timed with the float t_max the frame passes; then on
+     K1's two other ray sets (traversal_times.k1_rays: a view low over the
+     ground, and random directions from one origin), each against its
+     plain version and timed;
   2. K2 (trace_multi) on that frame's bounce-0 classes (bounce ray, env
      shadow, point shadow), against its plain version, then each class
      against K3 (trace_batched) on that class alone, with the three K3
@@ -103,7 +107,8 @@ from tpuray_torch.scene.procedural import make_large_scene, make_test_scene
 from tpuray_torch.train import optimize
 from tpuray_torch.denoise_times import (
     chain_times, fallback_shares, moving_renderer, step_increments)
-from tpuray_torch.traversal_times import k3_walks, k7_cases, kernel_ms, recorded_calls
+from tpuray_torch.traversal_times import (
+    k1_rays, k3_walks, k7_cases, kernel_ms, recorded_calls)
 
 H = W = 800
 # slice 2: the default view (SVGF + TAA on) without compaction (item 10)
@@ -337,13 +342,13 @@ def check_class(name, kernel, plain, tables, args, any_hit, reps=KERNEL_REPS):
         err = check_closest(name, t_k, i_k, t_p, i_p)
     n = args[1].shape[0]
     tm = kt._rays_tmax(args[2], n, args[1].device)
-    # timed with the per-ray t_max: a float is copied to the card, and waited
-    # for, on every call
-    ms = kernel_ms(lambda: kernel(tables, args[0], args[1], tm, *args[3:]), reps)
+    ms = kernel_ms(lambda: kernel(tables, *args), reps)
     work = {}
     plain(tables, *args, stats=work)
     live = int((tm > 0).sum())
-    b = trace_bound(tables, work, args[0], args[1], tm, t_k, i_k)
+    # a float t_max is one argument of the function, not an (N,) input
+    per_ray = (args[2],) if isinstance(args[2], torch.Tensor) else ()
+    b = trace_bound(tables, work, args[0], args[1], *per_ray, t_k, i_k)
     log(f"{name}: kernel {ms:.4f} ms ({n / ms / 1e3:.1f} Mrays/s, {live} live "
         f"of {n}), plain {plain_ms:.1f} ms; work {work}; bound {b[0]:.4f} ms "
         f"by {b[1]}")
@@ -602,7 +607,7 @@ def main() -> None:
 
     fp64 = fp64_in_sass(build.library_path())
     log("  sass: FP64 instructions per kernel " + json.dumps(fp64))
-    missing = [k for k in ("trace_k1", "trace_k2", "trace_k3", "trace_k6",
+    missing = [k for k in ("trace_k1_warp", "trace_k2", "trace_k3", "trace_k6",
                            "reproject_variance", "atrous_step", "gather_rows")
                if not any(name.split("<")[0] == k for name in ptxas)
                or not any(name.split("<")[0] == k for name in fp64)]
@@ -624,7 +629,7 @@ def main() -> None:
     log(f"scene: {scene.triangles.count} triangles, {scene.bvh.count} nodes, "
         f"host build + upload {time.perf_counter() - t0:.2f} s")
     wide = kt.wide_tree(tables.meta.cpu().numpy(), tables.aabb.cpu().numpy())
-    log(f"records: nodes {nbytes(tables.nodes) / 1e6:.3f} MB, K3's wide nodes "
+    log(f"records: nodes {nbytes(tables.nodes) / 1e6:.3f} MB, K1's and K3's wide nodes "
         f"{wide.records.shape[0]} rows {nbytes(tables.wide) / 1e6:.3f} MB (a walk needs "
         f"{wide.stack} of its {kt.WIDE_STACK} stack entries), triangles "
         f"{nbytes(tables.tris) / 1e6:.3f} MB")
@@ -638,16 +643,19 @@ def main() -> None:
     (t_p, i_p), k1_plain_ms = once_ms(
         lambda: kt.trace_packets_plain(tables, orig, d, INF, common_origin=True))
     k1_err = check_closest("K1 primaries", t_k, i_k, t_p, i_p)
-    inf_rays = torch.full((d.shape[0],), INF, device=dev)  # a float t_max waits on a copy
-    k1_ms = kernel_ms(lambda: kt.trace_packets(tables, orig, d, inf_rays,
-                                               common_origin=True))
+    k1_ms = kernel_ms(lambda: kt.trace_packets(tables, orig, d, INF, common_origin=True))
     work = {}
     kt.trace_packets_plain(tables, orig, d, INF, common_origin=True, stats=work)
-    k1_bound = bound(table_bytes + nbytes(orig[:1], d, t_k, i_k) + 4 * d.shape[0],
+    # the float t_max is a kernel argument: no (N,) array is read
+    k1_bound = bound(table_bytes + nbytes(orig[:1], d, t_k, i_k),
                      work["box_tests"] * BOX_OPS + work["tri_tests"] * TRI_OPS)
     log(f"K1: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.1f} ms "
         f"({d.shape[0] / k1_ms / 1e3:.1f} Mrays/s); work {work}; "
         f"bound {k1_bound[0]:.4f} ms by {k1_bound[1]}")
+    for name, o1, d1 in k1_rays(dev)[1:]:
+        err, *_ = check_class(f"K1 {name}", kt.trace_packets, kt.trace_packets_plain,
+                              tables, (o1, d1, INF, False, True), any_hit=False)
+        k1_err = max(k1_err, err)
 
     # ---- 2. K2: bounce-0 classes of the same frame, captured from the tracer
     calls = recorded_calls(scene, SLICE, tables, (orig, d, px, py))
@@ -946,7 +954,7 @@ def main() -> None:
                     library_ms=library_ms)
 
     kernels = [
-        entry("K1 trace_packets", "tpuray_torch/csrc/trace.cu",
+        entry("K1 trace_packets", "tpuray_torch/csrc/trace_wide.cu",
               "tpuray/kernels/trace_pallas.py:233", "k1", k1_err, k1_ms, k1_plain_ms,
               k1_bound),
         entry("K2 trace_multi", "tpuray_torch/csrc/trace.cu",

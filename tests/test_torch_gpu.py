@@ -1,5 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
-K1 (shared-origin primaries), K2 (fused bounce classes, and each class
+K1 (shared-origin rays: random directions and tile-ordered camera
+primaries; a float t_max copies nothing to the card, for K3 and K6
+neither), K2 (fused bounce classes, and each class
 against K3 on that class alone), K3 (per-ray origins over the wide
 records; also the five walks of a separate-walk and a MIS frame), K4 and K5 (the
 denoiser; also at ragged and tiny sizes and at 1080p, on sky, at every
@@ -102,16 +104,24 @@ def _assert_closest(t, i, t_p, i_p):
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
-@pytest.mark.parametrize("kernel", ["k1", "k3"])
+@pytest.mark.parametrize("kernel", ["k1", "k1 tiles", "k3"])
 def test_k1_matches_plain(cuda_scene, any_hit, kernel):
-    """K1 (a shared origin) and K3 (per-ray origins, some inside boxes)."""
+    """K1 (a shared origin: random directions, and the tile-ordered
+    primaries of an 800x800 camera, whose warps walk nearly one path) and
+    K3 (per-ray origins, some inside boxes)."""
     _, tables = cuda_scene
-    n = 65_536
-    common_origin = kernel == "k1"
-    o, d = _rays(10, n, common_origin)
+    common_origin = kernel != "k3"
+    if kernel == "k1 tiles":
+        cam = OrbitCamera(width=800, height=800).snapshot("cuda")
+        og, dg = camera_rays(cam, 800, 800)[:2]
+        og = og[:1].contiguous()
+        n = dg.shape[0]
+    else:
+        n = 65_536
+        o, d = _rays(10, n, common_origin)
+        og, dg = _cuda(o[:1] if common_origin else o, d)
     dead = np.arange(n) % 5 == 0
-    tm = np.where(dead, 0.0, 1e30 if not any_hit else 1.8).astype(np.float32)
-    og, dg, tmg = _cuda(o[:1] if common_origin else o, d, tm)
+    tmg = _cuda(np.where(dead, 0.0, 1e30 if not any_hit else 1.8).astype(np.float32))[0]
     kt.reset_launches()
     if common_origin:
         t, i = kt.trace_packets(tables, og, dg, tmg, any_hit, True)
@@ -128,6 +138,46 @@ def test_k1_matches_plain(cuda_scene, any_hit, kernel):
         _assert_closest(t, i, t_p, i_p)
     assert bool((i[torch.from_numpy(dead).cuda()] == -1).all())
     assert float((i_p >= 0).float().mean()) > 0.2
+
+
+def test_float_t_max_copies_nothing(cuda_scene, cuda_forest):
+    """A float t_max reaches K1 as a kernel argument and K3 and K6 as an
+    array filled in on the card: none of the three calls copies from the
+    host (a pageable copy makes PyTorch wait for the stream), and each
+    result is bit-equal to the same call with a per-ray tensor t_max."""
+    from torch.profiler import ProfilerActivity, profile
+    _, tables = cuda_scene
+    _, forest = cuda_forest
+    n = 65_536
+    o, d = _rays(17, n, True)
+    og, dg = _cuda(o[:1], d)
+    orig_n = og.expand(n, 3).contiguous()
+    tm = torch.full((n,), 1e30, device="cuda")
+    calls = {
+        "k1": lambda t_max: kt.trace_packets(tables, og, dg, t_max, False, True),
+        "k3": lambda t_max: kt.trace_batched(tables, orig_n, dg, t_max),
+        "k6": lambda t_max: ktc.trace_chunked(forest, og, dg, t_max, False, True),
+    }
+    names = {"k1": "trace_k1_warp", "k3": "trace_k3", "k6": "trace_k6"}
+    for key, call in calls.items():
+        call(1e30)  # built and warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            got = call(1e30)
+            torch.cuda.synchronize()
+        device = [e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert any(names[key] in name for name in device), (key, device)
+        assert not [name for name in device if "HtoD" in name], (key, device)
+        want = call(tm)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), key
+        assert float((want[1] >= 0).float().mean()) > 0.2
+    # the profiler does see such a copy
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.as_tensor(1e30, device="cuda")
+        torch.cuda.synchronize()
+    assert any("HtoD" in e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 @pytest.mark.parametrize("path", ["separate-walk", "MIS"])

@@ -1,40 +1,36 @@
-// BVH traversal kernels for the H100 (sm_90a), hand-written CUDA C++.
+// K2: the fused secondary walk for the H100 (sm_90a), hand-written CUDA
+// C++.
 //
-// Replaces tpuray/kernels/trace_pallas.py:_kernel (K1: closest-hit or
-// any-hit trace of the camera primaries, common origin) and
-// trace_pallas.py:416 _kernel_multi (K2: up to three ray classes that
-// share their origins: the bounce ray, the env-map shadow ray and the
-// point-light shadow ray of one bounce). The same function for incoherent
-// rays with per-ray origins (K3, trace_pallas.py:_kernel_batched) is
-// trace_wide.cu; the forest walk K6 is trace_chunked.cu; the device code
-// all of them share is trace_common.cuh.
+// Replaces tpuray/kernels/trace_pallas.py:416 _kernel_multi: up to three
+// ray classes that share their origins (the bounce ray, the env-map
+// shadow ray and the point-light shadow ray of one bounce). The camera
+// primaries (K1) and the rays with per-ray origins (K3) walk the tree's
+// 4-wide records in trace_wide.cu; the forest walk K6 is trace_chunked.cu;
+// the device code all of them share is trace_common.cuh.
 //
 // Design. The TPU kernels walk a 32x128 packet in lock step with one scalar
-// stack in SMEM (K3 pops up to 8 nodes a step to hide the TPU's
-// vector-to-scalar stalls). Here one thread walks one ray with its own stack
-// of kMaxStack int32 in local memory (pack_scene in kernels/trace.py checks
+// stack in SMEM. Here one thread walks one ray with its own stack of
+// kMaxStack int32 in local memory (pack_scene in kernels/trace.py checks
 // that no DFS order of the tree can need more), children near-first by the
 // ray's own direction sign on the node's split axis
-// (trace_common.cuh:walk_subtree).
-//
-// K2. The TPU walked the three classes as one union walk, because the
-// packet's lanes shared each scalar node load. On this card every thread
-// has its own stack, and a union walk in one thread serialises three
-// unrelated walks: it visits every node any class enters, keeps three
-// rays' registers, and orders children by class 0's direction only. So K2
-// launches M x N threads, class-major (a warp holds one class's rays),
-// and each runs K1's walk from its shared origin with its class's
+// (trace_common.cuh:walk_subtree). The TPU walked the three classes as one
+// union walk, because the packet's lanes shared each scalar node load. On
+// this card every thread has its own stack, and a union walk in one thread
+// serialises three unrelated walks: it visits every node any class enters,
+// keeps three rays' registers, and orders children by class 0's direction
+// only. So K2 launches M x N threads, class-major (a warp holds one
+// class's rays), and each walks from its shared origin with its class's
 // direction, t_max and any-hit flag. Each class's result is exactly its
 // own single-class trace (K3 on that class alone, up to exact-t ties: K3
 // walks the tree's 4-wide records in its own order).
 //
-// What bounds them on this card: dependent global loads at every node
-// visit (the node record, then up to eight triangle records) and warp
-// divergence between rays that take different paths. Not FLOPs, and not
-// device-memory bandwidth: a 20k-triangle scene's records are ~1 MB, far
-// inside the 50 MB L2. The records (trace_common.cuh) turn each node
-// visit's ~17 dependent 4-byte loads from the SoA tables into four 16-byte
-// loads, and a triangle's 12 into 3. wgmma and TMA have nothing to do in a
+// What bounds it on this card: dependent global loads at every node visit
+// (the node record, then up to eight triangle records) and warp divergence
+// between rays that take different paths. Not FLOPs, and not device-memory
+// bandwidth: a 20k-triangle scene's records are ~1 MB, far inside the
+// 50 MB L2. The records (trace_common.cuh) turn each node visit's ~17
+// dependent 4-byte loads from the SoA tables into four 16-byte loads, and a
+// triangle's 12 into 3. wgmma and TMA have nothing to do in a
 // pointer-chasing walk.
 
 #include "trace_common.cuh"
@@ -43,23 +39,6 @@ namespace {
 
 using namespace tpuray;
 
-// ---------------------------------------------------------------- K1
-template <bool kAnyHit>
-__global__ void __launch_bounds__(kBlock)
-trace_k1(Tables tb, const float* __restrict__ orig,
-         const float* __restrict__ dir, const float* __restrict__ t_max,
-         float* __restrict__ t_out, int* __restrict__ idx_out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = make_ray(orig, dir + 3 * static_cast<size_t>(i));
-  float t;
-  int idx;
-  trace_ray<kAnyHit>(tb, r, t_max[i], &t, &idx);
-  t_out[i] = t;
-  idx_out[i] = idx;
-}
-
-// ---------------------------------------------------------------- K2
 struct MultiArgs {
   const float* dir[3];
   const float* t_max[3];
@@ -96,31 +75,9 @@ trace_k2(Tables tb, const float* __restrict__ orig, MultiArgs a, int any_mask,
 
 extern "C" {
 
-// The scene operands of every entry below (kernels/trace.py:TraceTables):
-// nodes (R, 16) node records, tris (T, 12) triangle records, root_box (6,),
-// root the root's ref.
-
-// K1. orig (1, 3), shared by every ray; dir (n, 3); t_max (n,); outputs
-// t_out (n,) f32, idx_out (n,) i32. Returns the cudaError_t of the launch
-// (0 = success).
-int tpuray_trace_packets(const float* nodes, const float* tris,
-                         const float* root_box, int root,
-                         const float* orig, const float* dir,
-                         const float* t_max, float* t_out, int* idx_out,
-                         int n, int any_hit, void* stream) {
-  if (n <= 0) return 0;
-  const Tables tb{reinterpret_cast<const float4*>(nodes),
-                  reinterpret_cast<const float4*>(tris), root_box, root};
-  const dim3 grid((n + kBlock - 1) / kBlock);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (any_hit)
-    trace_k1<true><<<grid, kBlock, 0, s>>>(tb, orig, dir, t_max, t_out, idx_out, n);
-  else
-    trace_k1<false><<<grid, kBlock, 0, s>>>(tb, orig, dir, t_max, t_out, idx_out, n);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K2. m classes (1..3) from shared per-ray origins orig (n, 3); class c has
+// K2. The scene operands (kernels/trace.py:TraceTables): nodes (R, 16) node
+// records, tris (T, 12) triangle records, root_box (6,), root the root's
+// ref. m classes (1..3) from shared per-ray origins orig (n, 3); class c has
 // dirs[c] (n, 3), t_maxs[c] (n,) and is any-hit iff bit c of any_mask.
 // Unused class slots are NULL.
 int tpuray_trace_multi(const float* nodes, const float* tris,

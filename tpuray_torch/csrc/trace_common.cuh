@@ -1,10 +1,10 @@
-// Device code shared by the traversal kernels: K1 and K2 (trace.cu), K6
-// (trace_chunked.cu) and K3 (trace_wide.cu). K1, K2 and K6 run one walk
-// (walk_subtree) over the same packed records; they differ in where a
-// thread's origin, direction and t_max come from and in which tree
-// (single tree, or a forest under its top-level tree) they walk. K3 walks
-// 4-wide records of the same tree (trace_wide.cu) with this file's ray,
-// slab and triangle tests.
+// Device code shared by the traversal kernels: K2 (trace.cu), K6
+// (trace_chunked.cu), and K1 and K3 (trace_wide.cu). K2 and K6 run one walk
+// (walk_subtree) over the same packed binary records; they differ in where
+// a thread's origin, direction and t_max come from and in which tree
+// (single tree, or a forest under its top-level tree) they walk. K1 and K3
+// walk 4-wide records of the same tree (trace_wide.cu) with this file's
+// ray, slab and triangle tests.
 //
 // Records (kernels/trace.py:pack_tables, trace_chunked.py:pack_forest).
 // The SoA tables that the plain versions read (meta (5, n), aabb (6, n),

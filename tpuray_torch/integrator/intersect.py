@@ -7,8 +7,8 @@ JAX function. It is the plain version the traversal kernels
 (kernels/trace.py) are held against, and what they run on CPU tensors.
 
 The float op order of `ray_triangle_pre` is the JAX package's; the CUDA
-kernels (csrc/trace.cu) repeat it with FMA contraction off, so a kernel's
-t equals this function's t bit for bit.
+traversal kernels (csrc/trace_common.cuh) repeat it with FMA contraction
+off, so a kernel's t equals this function's t bit for bit.
 """
 from __future__ import annotations
 

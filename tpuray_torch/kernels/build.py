@@ -7,7 +7,8 @@ interface, under build/tpuray_torch/<hash>/ at the repository root
 No PyTorch headers are involved, so a build takes seconds.
 
 Flags: sm_90a only; -fmad=false and no fast math, so the kernels' float
-results equal the plain PyTorch versions' op for op (see csrc/trace.cu).
+results equal the plain PyTorch versions' op for op (see
+csrc/trace_common.cuh).
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "tpuray_trace_packets": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P],
+    "tpuray_trace_packets": [_P, _P, _P, _I, _P, _P, _P, _F, _P, _P, _I, _I, _P],
     "tpuray_trace_batched": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P],
     "tpuray_trace_chunked": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                              _P],

@@ -2,8 +2,9 @@
 (trace_batched) on a single tree.
 
 Counterpart of tpuray/kernels/trace_pallas.py. The CUDA kernels live in
-csrc/trace.cu (K1, K2) and csrc/trace_wide.cu (K3, which walks the same
-tree collapsed into 4-wide records, wide_tree); see their headers for the
+csrc/trace.cu (K2, over the binary records) and csrc/trace_wide.cu (K1,
+one walk a warp, and K3, one walk a thread, both over the same tree
+collapsed into 4-wide records, wide_tree); see their headers for the
 designs. Each wrapper here
 
 - runs the plain PyTorch version (integrator/intersect.py's skip-link
@@ -280,8 +281,13 @@ def _constants(tables: TraceTables) -> dict[str, Tensor]:
 
 
 def _rays_tmax(t_max, n: int, device) -> Tensor:
-    return torch.as_tensor(t_max, dtype=torch.float32,
-                           device=device).expand(n).contiguous()
+    """(n,) f32 t_max on `device`. A float is filled in on the device:
+    torch.as_tensor would copy it from pageable host memory, and PyTorch
+    waits for the stream after such a copy."""
+    if isinstance(t_max, torch.Tensor):
+        return torch.as_tensor(t_max, dtype=torch.float32,
+                               device=device).expand(n).contiguous()
+    return torch.full((n,), float(t_max), dtype=torch.float32, device=device)
 
 
 # ------------------------------------------------------------ plain versions
@@ -331,7 +337,7 @@ def _check_tables(tables: TraceTables, device: torch.device,
 
 
 def record_args(tables: TraceTables) -> tuple:
-    """The traversal kernels' scene arguments (K1-K3 here, K6 in
+    """The binary walks' scene arguments (K2 here, K6 in
     trace_chunked.py): nodes, tris, root_box, root."""
     return (tables.nodes.data_ptr(), tables.tris.data_ptr(),
             tables.root_box.data_ptr(), tables.root)
@@ -342,7 +348,7 @@ def _ptr(x: Tensor | None):
 
 
 def wide_args(tables: TraceTables) -> tuple:
-    """K3's scene arguments: wide, tris, root_box, wide_root."""
+    """K1's and K3's scene arguments: wide, tris, root_box, wide_root."""
     return (tables.wide.data_ptr(), tables.tris.data_ptr(),
             tables.root_box.data_ptr(), tables.wide_root)
 
@@ -350,30 +356,33 @@ def wide_args(tables: TraceTables) -> tuple:
 def _launch_single(entry: str, key: str, tables: TraceTables, orig: Tensor,
                    d: Tensor, t_max: Tensor | float, any_hit: bool
                    ) -> tuple[Tensor, Tensor]:
-    """Check, allocate and launch K1 (orig (1, 3), the binary records) or
-    K3 (orig (N, 3), the wide records)."""
+    """Check, allocate and launch K1 (orig (1, 3); a float t_max goes to
+    the kernel as an argument) or K3 (orig (N, 3)), both over the wide
+    records."""
     dev = d.device
     n = d.shape[0]
-    t_max = _rays_tmax(t_max, n, dev)
+    scalar = key == "k1" and not isinstance(t_max, torch.Tensor)
+    t_max = float(t_max) if scalar else _rays_tmax(t_max, n, dev)
     _check_tables(tables, dev)
-    if key == "k3":
-        if tables.wide is None:
-            raise ValueError("trace_batched (K3) walks pack_scene's wide records; "
-                             "these tables have none")
-        build.check(tables.wide, "wide", torch.int32,
-                    (tables.wide.shape[0], 8 * WIDE), dev)
+    if tables.wide is None:
+        raise ValueError(f"{entry} ({key.upper()}) walks pack_scene's wide "
+                         "records; these tables have none")
+    build.check(tables.wide, "wide", torch.int32,
+                (tables.wide.shape[0], 8 * WIDE), dev)
     build.check(orig, "orig", torch.float32, (1 if key == "k1" else n, 3), dev)
     build.check(d, "d", torch.float32, (n, 3), dev)
     t_out = torch.empty(n, dtype=torch.float32, device=dev)
     idx_out = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return t_out, idx_out
+    if key == "k1":  # K1's entry takes (t_max or NULL, t_max_all)
+        t_args = (None, t_max) if scalar else (t_max.data_ptr(), 0.0)
+    else:
+        t_args = (t_max.data_ptr(),)
     with torch.cuda.device(dev):
         rc = getattr(build.load(), entry)(
-            *(wide_args(tables) if key == "k3" else record_args(tables)),
-            orig.data_ptr(), d.data_ptr(),
-            t_max.data_ptr(), t_out.data_ptr(), idx_out.data_ptr(), n,
-            int(any_hit),
+            *wide_args(tables), orig.data_ptr(), d.data_ptr(), *t_args,
+            t_out.data_ptr(), idx_out.data_ptr(), n, int(any_hit),
             torch.cuda.current_stream(dev).cuda_stream)
     build.raise_on(rc, f"{entry} ({key.upper()})")
     LAUNCHES[key] += 1
@@ -387,10 +396,12 @@ def trace_packets(tables: TraceTables, orig: Tensor, d: Tensor,
     """K1: closest-hit (or any-hit) trace of N rays from one shared origin.
 
     orig (1, 3) or (N, 3) rows of one point, with common_origin; d (N, 3)
-    f32; t_max (N,) f32 or a scalar, <= 0 marks a dead lane. Returns
-    (t (N,) f32, idx (N,) int32), (INF, -1) on a miss. On the card K1 takes
-    shared origins only (rays with their own origins go to K3,
-    trace_batched); the plain version on the CPU takes either."""
+    f32; t_max (N,) f32 or a float (passed to the kernel as an argument:
+    nothing is copied to the card), <= 0 marks a dead lane. Returns
+    (t (N,) f32, idx (N,) int32), (INF, -1) on a miss. On the card K1 walks
+    pack_scene's wide records a warp at a time and takes shared origins
+    only (rays with their own origins go to K3, trace_batched); the plain
+    version on the CPU takes either."""
     if d.device.type == "cpu":
         return trace_packets_plain(tables, orig, d, t_max, any_hit,
                                    common_origin)

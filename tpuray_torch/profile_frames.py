@@ -49,7 +49,8 @@ from tpuray_torch.scene.config import RenderConfig
 from tpuray_torch.scene.procedural import make_large_scene, make_test_scene
 from tpuray_torch.train import optimize
 
-# device-kernel names of the hand-written kernels (csrc/*.cu)
+# device-kernel names of the hand-written kernels (csrc/*.cu), matched as
+# substrings: "trace_k1" is K1's trace_k1_warp, and older checkouts' trace_k1
 _OURS = {"K1": "trace_k1", "K2": "trace_k2", "K3": "trace_k3", "K6": "trace_k6",
          "K4": "reproject_variance", "K5": "atrous_step", "K7": "gather_rows"}
 

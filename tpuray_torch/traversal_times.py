@@ -8,17 +8,23 @@ in one call.
 (for example the parent, unpacked with `git archive` into the git-ignored
 build/), so the same rays go through that version's kernels; the script
 calls only entry points that every version since slice 4 has. The rays:
-the 800x800 camera primaries of the test scene (20,482 triangles; K1),
-the default view's bounce-0 classes (K2, and K3 on each class alone), the
-five K3 walks of one separate-walk frame and of one MIS frame (each
-recorded from trace_paths, in the frame's order), the six K6 walks of a
-131k-forest frame (primaries, bounce-0 env shadow, point shadow and bounce
-ray, bounce-1 env and point shadow) and the 524k forest's primaries and
-bounce-0 bounce ray. K7 and its library yardstick table[idx] on
-chip_smoke.py's three phase-13 cases (k7_cases). Each time is the mean
-device time of 20 launches between two CUDA events, after 3 warm-ups,
-queued behind a spin kernel so that the host's launch overhead does not
-count (kernel_ms, which chip_smoke.py and denoise_times.py use too).
+K1's three sets of 640,000 rays from one origin (k1_rays: the 800x800
+camera primaries of the test scene (20,482 triangles) in the default
+view and in a view low over the ground, whose rays graze it, and random
+directions from one origin), each with the float t_max the frame passes
+and with a per-ray t_max tensor (older checkouts copy a float to the
+card and wait for it); the default view's bounce-0 classes (K2, and K3
+on each class alone); the five K3 walks of one separate-walk frame and
+of one MIS frame (each recorded from trace_paths, in the frame's order);
+the six K6 walks of a 131k-forest frame (primaries, bounce-0 env shadow,
+point shadow and bounce ray, bounce-1 env and point shadow; the
+primaries also with a per-ray t_max tensor) and the 524k forest's
+primaries and bounce-0 bounce ray; K7 and its library yardstick
+table[idx] on chip_smoke.py's three phase-13 cases (k7_cases). Each time
+is the mean device time of 20 launches between two CUDA events, after 3
+warm-ups, queued behind a spin kernel so that the host's launch overhead
+does not count (kernel_ms, which chip_smoke.py and denoise_times.py use
+too).
 --parts picks the groups to time (default: all but k3split, which times
 each K3 walk again with every lane dead and with its live rays alone,
 packed into a dense array).
@@ -106,10 +112,37 @@ MIS_WALKS = ("bounce-0 light shadow", "bounce-0 BSDF continuation",
              "bounce-1 BSDF continuation")
 
 
+def k1_rays(dev, size: int = W) -> list:
+    """[(name, orig (1, 3), d (N, 3))]: K1's ray sets, N = size^2, all
+    closest-hit with t_max = INF as the frame traces them: the camera
+    primaries of the default view (OrbitCamera()) and of a view low over
+    the ground (pitch 2 degrees, rays that graze the ground quad), both in
+    32x32 tile order (camera_rays), and random directions from one origin
+    (tests/test_torch_gpu.py's: toward seeded points about the sphere), for
+    which a warp's lanes part at once."""
+    import numpy as np
+    import torch
+    from tpuray_torch.render.renderer import camera_rays
+    from tpuray_torch.scene.camera import OrbitCamera
+    out = []
+    for name, pitch in (("default view", 10.0), ("grazing view", 2.0)):
+        cam = OrbitCamera(width=size, height=size, pitch_deg=pitch).snapshot(dev)
+        orig, d, _, _ = camera_rays(cam, size, size)
+        out.append((name, orig[:1].contiguous(), d))
+    rng = np.random.default_rng(10)
+    o = np.asarray([[0.0, 0.3, 2.0]], np.float32)
+    d = (rng.random((size * size, 3)).astype(np.float32) - 0.5) * 1.5 - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    out.append(("random directions", torch.from_numpy(o).to(dev),
+                torch.from_numpy(d).to(dev)))
+    return out
+
+
 def k3_walks(scene, cfg, tables, rays) -> list:
     """[(name, (orig, d, t_max, any_hit))] of the five K3 walks of one
-    separate-walk and one MIS frame, each t_max a per-ray tensor (a float
-    t_max is copied to the card, and waited for, on every call)."""
+    separate-walk and one MIS frame, each t_max a per-ray tensor, so that
+    every checkout times the same work (older ones copy a float t_max to
+    the card and wait for it)."""
     import torch
     walks = []
     for path, cfg_p, names in (
@@ -185,10 +218,13 @@ def main() -> None:
     tables = kt.pack_scene(scene.bvh, scene.triangles)
     rays = camera_rays(OrbitCamera(width=W, height=H).snapshot(dev), H, W)
     orig, d = rays[0], rays[1]
-    inf_rays = torch.full((d.shape[0],), INF, device=dev)  # a float t_max waits on a copy
     if "k1" in parts:
-        timed("K1 primaries", lambda: kt.trace_packets(tables, orig, d, inf_rays,
-                                                       common_origin=True))
+        inf_rays = torch.full((d.shape[0],), INF, device=dev)
+        for name, o1, d1 in k1_rays(dev):
+            timed(f"K1 {name}", lambda o1=o1, d1=d1: kt.trace_packets(
+                tables, o1, d1, INF, common_origin=True))
+            timed(f"K1 {name}, t_max per ray", lambda o1=o1, d1=d1: kt.trace_packets(
+                tables, o1, d1, inf_rays, common_origin=True))
     if "k2" in parts:
         _, o2, dirs, tms, ah = recorded_calls(scene, cfg, tables, rays)[1][1]
         timed("K2 bounce 0, 3 classes", lambda: kt.trace_multi(tables, o2, dirs, tms, ah))
@@ -213,7 +249,7 @@ def main() -> None:
             timed(f"K3 {name}, its {int(live.sum())} live rays alone",
                   lambda packed=packed, ah=ah: kt.trace_batched(tables, *packed, ah))
     if "k7" in parts:
-        prim_idx = kt.trace_packets(tables, orig, d, inf_rays, common_origin=True)[1]
+        prim_idx = kt.trace_packets(tables, orig, d, INF, common_origin=True)[1]
         for name, table, idx in k7_cases(scene, prim_idx):
             timed(f"K7 {name}", lambda table=table, idx=idx: kg.onehot_gather(table, idx))
             timed(f"table[idx] {name}", lambda table=table, idx=idx: table[idx])
@@ -230,10 +266,13 @@ def main() -> None:
                  "bounce-0 bounce ray", "bounce-1 env shadow", "bounce-1 point shadow")
         for k in walks:
             args = list(calls[k][1][1:])  # orig, d, t_max, ...
-            if not isinstance(args[2], torch.Tensor):  # a float t_max waits on a copy
-                args[2] = torch.full((args[1].shape[0],), args[2], device=dev)
             timed(f"K6 {tag} {names[k]}",
                   lambda args=args: ktc.trace_chunked(forest, *args))
+            if not isinstance(args[2], torch.Tensor):
+                per_ray = [*args[:2], torch.full((args[1].shape[0],), args[2], device=dev),
+                           *args[3:]]
+                timed(f"K6 {tag} {names[k]}, t_max per ray",
+                      lambda per_ray=per_ray: ktc.trace_chunked(forest, *per_ray))
         del large, forest, calls
     print(json.dumps(times), flush=True)
 
