@@ -70,7 +70,31 @@ instructions in its SASS (cuobjdump -sass), then:
      Adam with lr 1e-2 on base_color, the perturbed field) with the launch
      counts set to 0 just before and read just after (K1 1 and K2 2 a
      step); the loss must fall; then one step's gradients through the
-     kernels against the plain tracer's at 256x256.
+     kernels against the plain tracer's at 256x256;
+ 16. the default RenderConfig (compaction on, its budget buckets chosen by
+     the Renderer) at 800x800 on the test scene loaded from files: written
+     as an OBJ with non-constant texture coordinates under build/, loaded by
+     build_scene with procedural textures, the -1 material sentinels and the
+     4 point lights of reference_default_scene (profile_frames.file_scene).
+     Twice: at subdiv 5 (20,482 triangles: a chunked forest by the layout
+     rule, K6) and at subdiv 4 (5,122: a single tree, K1 and K2). Each: 2
+     warm-up frames, then 32 moving frames across the first bucket switch
+     with the launch counts set to 0 just before and read just after (a
+     frame whose hits overflow its budget adds the residual pass's walks);
+     the wait of the frame's one host read (the hit count); on the single
+     tree, K2 on the compacted bounce-0 rays against its plain version and
+     timed beside K2 on the uncompacted ones; 2 frames at the visited
+     bucket through the kernels against the plain versions; the compacted
+     frame against the same frame with compact_frac=0 (mismatching pixels,
+     max |diff|); then wall ms (min, median, max), device ms and kernels a
+     frame and the device's busy share with compaction on and off
+     (profile_frames.FrameRun, torch.profiler); then the test scene itself
+     under RenderConfig(): 53% of its lanes hit, so the first bucket (0.5)
+     overflows and the residual pass runs (K2 4 a frame) until the
+     Renderer turns compaction off after frame 16 (K2 2);
+ 17. `python -m tpuray_torch.cli.main render --frames 4 --size 800` as a
+     subprocess (the default config on the procedural scene): it must exit
+     0 and write a finite 800x800 PNG.
 Any failed check raises (non-zero exit). The last lines are the kernels'
 JSON line (launches: the sum over every path run above, each run counted
 from 0 just before it; errors, times and bounds from phases 1-4, 8, 11 and
@@ -107,11 +131,14 @@ from tpuray_torch.scene.procedural import make_large_scene, make_test_scene
 from tpuray_torch.train import optimize
 from tpuray_torch.denoise_times import (
     chain_times, fallback_shares, moving_renderer, step_increments)
+from tpuray_torch.io.image import read_png
+from tpuray_torch.profile_frames import FrameRun, file_scene
 from tpuray_torch.traversal_times import (
     k1_rays, k3_walks, k7_cases, kernel_ms, recorded_calls)
 
 H = W = 800
-# slice 2: the default view (SVGF + TAA on) without compaction (item 10)
+# slice 2: the default view (SVGF + TAA on) without compaction; phase 16 runs
+# RenderConfig() as it is
 SLICE = RenderConfig(width=W, height=H, compact_frac=0.0, compact_auto=False)
 SLICE_PLAIN = dataclasses.replace(SLICE, pallas_denoise=False)
 SLICE1 = dataclasses.replace(SLICE, enable_svgf=False)  # slice 1: SVGF off
@@ -127,6 +154,9 @@ GRAD_SIZE = 128     # bench.py's gradient checks
 TRAIN_STEPS = 5     # the trainer at W x H
 TRAIN_CHECK_SIZE = 256  # train-step gradients, kernels against plain
 GRAD_ATOL = 1e-4    # of each field's largest |gradient|: table[idx]'s backward sums with atomics
+DEFAULT = RenderConfig(width=W, height=H)  # phase 16: every other option at its default
+SWITCH_FRAMES = 32  # phase 16's counted frames: the first bucket switch comes after 16
+PROFILE_FRAMES = 8  # phase 16's frames under torch.profiler, compaction on and off
 MAX_MISMATCH = 1e-4  # idx / hit-miss / validity may differ on <= 0.01%
 RTOL, ATOL = 1e-5, 1e-6  # K4 and K5 against their plain versions
 
@@ -584,6 +614,168 @@ def phase_train(scene, dev) -> dict:
         f"{GRAD_ATOL} of it); plain step {plain_ms:.1f} ms")
     return run
 
+def _frame_walks(forest: bool, residual: bool) -> dict:
+    """The traversal launches of one moving depth-2 NEE frame: a forest
+    walks everything through K6 (the primaries and five secondary walks), a
+    single tree takes K1 for the primaries and K2 a bounce; the residual
+    pass walks its secondaries again."""
+    if forest:
+        return dict(k1=0, k2=0, k6=6 + (5 if residual else 0))
+    return dict(k1=1, k2=2 + (2 if residual else 0), k6=0)
+
+
+def phase_k2_compacted(scene, tables, bucket: float, dev) -> None:
+    """16, single tree: K2 on one frame's compacted bounce-0 rays (budget
+    lanes) against its plain version, timed beside K2 on the same frame's
+    uncompacted rays."""
+    camera = OrbitCamera(width=W, height=H).snapshot(dev)
+    rays = camera_rays(camera, H, W)
+    cfg = dataclasses.replace(DEFAULT, compact_frac=bucket, compact_auto=False)
+    times = {}
+    for name, c in (("compacted", cfg), ("uncompacted", dataclasses.replace(cfg, compact_frac=0.0))):
+        calls = recorded_calls(scene, c, tables, rays)
+        multi = [a for n, a, _ in calls if n == "multi"]
+        _, o2, dirs, tms, ah = multi[0]
+        got = kt.trace_multi(tables, o2, dirs, tms, tuple(ah))
+        ref = kt.trace_multi_plain(tables, o2, dirs, tms, tuple(ah))
+        check_closest(f"K2 {name} bounce class", got[0][0], got[0][1], *ref[0])
+        for cls in (1, 2):
+            check_any(f"K2 {name} shadow class {cls}", got[cls][1], ref[cls][1])
+        times[name] = (o2.shape[0], int((tms[0] > 0).sum()), len(multi),
+                       kernel_ms(lambda: kt.trace_multi(tables, o2, dirs, tms, tuple(ah))))
+    log("K2 under compaction (bounce 0): " + "; ".join(
+        f"{k} {n} lanes ({live} live), {calls} K2 calls a frame, {ms:.4f} ms"
+        for k, (n, live, calls, ms) in times.items()))
+
+
+def default_frames(scene, forest: bool, tag: str) -> tuple[dict, object, list]:
+    """RenderConfig() as it is: 2 warm-up frames, then SWITCH_FRAMES moving
+    frames across the first budget switch with the launch counts set to 0
+    just before and read just after, each frame's traversal launches
+    expected from its budget and hit count (the residual pass walks the
+    secondaries again) -> (launches, last outputs, compact_frac per frame).
+    Times the frames and the wait of each frame's one host read."""
+    r = Renderer(scene, DEFAULT)
+    cam = OrbitCamera(width=W, height=H)
+    for _ in range(2):
+        r.step(cam.snapshot())
+        cam.rotate(0.5, 0.0)
+    n = W * H  # 800 is a multiple of the 32-pixel tile: no padding lanes
+    waits = []
+    host_count = pt.host_count
+
+    def timed_count(count):
+        t = time.perf_counter()
+        value = host_count(count)
+        waits.append((time.perf_counter() - t) * 1e3)
+        return value
+
+    want = dict(k1=0, k2=0, k3=0, k4=0, k5=0, k6=0, k7=0)
+    buckets, residual, frame_ms = [], [], []
+    torch.cuda.synchronize()
+    pt.host_count = timed_count
+    try:
+        reset_launches()
+        for _ in range(SWITCH_FRAMES):
+            buckets.append(r.frame_cfg.compact_frac)
+            budget = pt._compact_budget(n, r.frame_cfg)
+            cam.rotate(0.5, 0.0)
+            t1 = time.perf_counter()
+            out = r.step(cam.snapshot())
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t1) * 1e3)
+            residual.append(0 < budget < round(float(out.coverage) * n))
+            add_launches(want, dict(_frame_walks(forest, residual[-1]), k4=1,
+                                    k5=DEFAULT.num_atrous_iterations))
+        run = launches()
+    finally:
+        pt.host_count = host_count
+    switches = [(i, a, b) for i, (a, b) in enumerate(zip(buckets, buckets[1:]), 1) if a != b]
+    by_kind = {}
+    for ms, frac, res in zip(frame_ms, buckets, residual):
+        by_kind.setdefault(f"compact_frac {frac}{' + residual' if res else ''}", []).append(ms)
+    log(f"{tag} default-config frames: {SWITCH_FRAMES} at {W}x{H}, median "
+        f"{statistics.median(frame_ms):.3f} ms, max {max(frame_ms):.3f} ms, min "
+        f"{min(frame_ms):.3f} ms, coverage {float(out.coverage):.4f}; compact_frac per "
+        f"frame {buckets} (switches (frame, from, to) {switches}); residual passes "
+        f"{sum(residual)}; medians by kind " + ", ".join(
+            f"{k} {statistics.median(v):.3f} ms ({len(v)})" for k, v in by_kind.items())
+        + (f"; the hit-count read waits median {statistics.median(waits):.3f} ms (max "
+           f"{max(waits):.3f}) over {len(waits)} reads" if waits else "")
+        + f"; launches {run}")
+    expect_launches(f"{tag} frames", run, want)
+    if not switches:
+        raise AssertionError(f"{tag}: the budget bucket did not switch: {buckets}")
+    return run, out, buckets
+
+
+def phase_file_scene(subdiv: int, dev) -> dict:
+    """16. The default config on the test scene loaded from files -> the
+    counted frames' launches."""
+    t0 = time.perf_counter()
+    scene = file_scene(subdiv, device=dev)
+    tables = pt.pack_traversal(scene)
+    torch.cuda.synchronize()
+    forest = bool(tables.chunk_nodes)
+    tag = f"file scene {scene.triangles.count}"
+    log(f"{tag}: {'a chunked forest of ' + str(tables.n_chunks) + ' chunks' if forest else 'a single tree'} "
+        f"({scene.bvh.count} node rows), textures {tuple(scene.textures.data.shape)}, "
+        f"materials base_color {scene.materials.base_color.tolist()}, "
+        f"{scene.lights.count} point lights; host build + upload "
+        f"{time.perf_counter() - t0:.2f} s")
+    run, out, buckets = default_frames(scene, forest, tag)
+    check_image(out, svgf_on=True)
+    bucket = buckets[-1] or DEFAULT.compact_frac
+    if not forest:
+        phase_k2_compacted(scene, tables, bucket, dev)
+
+    fixed = dataclasses.replace(DEFAULT, compact_frac=bucket, compact_auto=False)
+    out_k = moving_renderer(scene, fixed, 2)[2]
+    (_, _, out_p, _, _), plain_ms = once_ms(lambda: moving_renderer(
+        scene, dataclasses.replace(fixed, pallas_denoise=False), 2, tracer=pt.PLAIN))
+    log(f"{tag} plain-version frames: 2 at compact_frac {bucket} in {plain_ms:.1f} ms "
+        f"(set-up included)")
+    assert_images_close(f"{tag} frame 2 final at compact_frac {bucket}, kernels vs plain",
+                        out_k.final, out_p.final)
+    out_0 = moving_renderer(scene, dataclasses.replace(fixed, compact_frac=0.0), 2)[2]
+    for field in ("pt_color", "final"):
+        a, b = getattr(out_k, field), getattr(out_0, field)
+        log(f"{tag} frame 2 {field}, compact_frac {bucket} vs 0: "
+            f"{int((a != b).any(-1).sum())} of {a.shape[0] * a.shape[1]} pixels differ, "
+            f"max |diff| {float((a - b).abs().max()):.3g}")
+        assert_images_close(f"{tag} frame 2 {field}, compacted vs uncompacted", a, b)
+
+    runs = [FrameRun(scene, DEFAULT, f"{tag} compaction on"),
+            FrameRun(scene, dataclasses.replace(DEFAULT, compact_frac=0.0, compact_auto=False),
+                     f"{tag} compaction off")]
+    walls = [run.time_frames(TIMED_FRAMES) for run in runs]
+    res = [run.profile_frames(PROFILE_FRAMES, wall, Path("build/profile"))
+           for run, wall in zip(runs, walls)]
+    on, off = res
+    log(f"{tag}: compaction on vs off: wall median {on['wall_ms']:.3f} vs {off['wall_ms']:.3f} "
+        f"ms, device {on['device_ms_per_frame']:.3f} vs {off['device_ms_per_frame']:.3f} ms a "
+        f"frame, {on['kernels_per_frame']:.1f} vs {off['kernels_per_frame']:.1f} kernels a "
+        f"frame, busy share {on['busy_share']:.3f} vs {off['busy_share']:.3f}")
+    return run
+
+
+def phase_cli() -> None:
+    """17. The CLI's render on the card, as a user runs it."""
+    root = Path(__file__).resolve().parent
+    png = root / "build" / "cli_render.png"
+    png.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "tpuray_torch.cli.main", "render", "--frames", "4",
+           "--size", "800", "--out", str(png)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+    log(f"cli: {' '.join(cmd[1:])} -> exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s; stderr: {proc.stderr.strip()[-600:]}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI's render exited {proc.returncode}")
+    img = read_png(str(png))
+    if img.shape != (H, W, 3) or not bool((img > 0).any()):
+        raise AssertionError(f"the CLI wrote an image of shape {img.shape}")
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -946,6 +1138,21 @@ def main() -> None:
 
     # ---- 15. the trainer at 800x800
     add_launches(path_launches, phase_train(scene, dev))
+
+    # ---- 16. the default config on the test scene loaded from files, and
+    # on the test scene itself: 53% of its lanes hit, so the first bucket
+    # (0.5) overflows and the residual pass runs until the Renderer turns
+    # compaction off
+    for subdiv in (5, 4):
+        add_launches(path_launches, phase_file_scene(subdiv, dev))
+    run, out, buckets = default_frames(scene, False, "test scene")
+    add_launches(path_launches, run)
+    check_image(out, svgf_on=True)
+    if buckets[0] != 0.5 or buckets[-1] != 0.0:
+        raise AssertionError(f"test scene buckets {buckets}: expected 0.5, then none")
+
+    # ---- 17. the CLI
+    phase_cli()
 
     def entry(name, source, replaces, key, err, ms, plain_ms, b, library_ms=None):
         return dict(name=name, route="cuda", source=source, replaces=replaces,

@@ -180,15 +180,25 @@ def test_renderer_needs_cuda_unless_asked_for_cpu(scenes, monkeypatch):
 @pytest.mark.parametrize("field,value,item", [
     ("reproject_gather", "tiled", "TPU-only"),
     ("fast_reproject", True, "TPU-only"),
-    ("compact_frac", 0.5, "item 10"),
-    ("compact_auto", True, "item 10"),
-    ("use_normal_map", True, "item 9"),
 ])
 def test_unported_config_raises(scenes, field, value, item):
     _, ts = scenes
     cfg = RenderConfig(width=16, height=16, **dict(SVGF_SLICE, **{field: value}))
     with pytest.raises(NotImplementedError, match=item):
         tpuray_torch.Renderer(ts, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("compact_frac", 0.5), ("compact_auto", True), ("use_normal_map", True)])
+def test_ported_config_renders(scenes, field, value):
+    """The options that raised until compaction and textures were ported:
+    a frame renders, finite (a scene without textures ignores the normal
+    map)."""
+    _, ts = scenes
+    cfg = RenderConfig(width=16, height=16, **dict(SVGF_SLICE, **{field: value}))
+    out = tpuray_torch.Renderer(ts, cfg, device="cpu").step(
+        OrbitCamera(width=16, height=16).snapshot())
+    assert bool(torch.isfinite(out.final).all())
 
 
 def test_renders_without_jax():

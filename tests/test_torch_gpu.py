@@ -33,7 +33,8 @@ import numpy as np
 import pytest
 import torch
 
-from tpuray_torch.integrator.path_tracer import KERNELS, PLAIN, pack_traversal
+from tpuray_torch.integrator.path_tracer import (
+    KERNELS, PLAIN, _compact_budget, pack_traversal)
 from tpuray_torch.kernels import atrous as ka
 from tpuray_torch.kernels import gather as kg
 from tpuray_torch.kernels import reproject as kr
@@ -651,3 +652,51 @@ def test_train_step_kernels_match_plain(cuda_scene):
         torch.testing.assert_close(g, ref, rtol=0,
                                    atol=1e-4 * float(ref.abs().max()) + 1e-12, msg=name)
     assert float(grads[0]["materials.base_color"].abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("frac,residual", [(0.75, False), (0.125, True)],
+                         ids=["fits", "residual"])
+@pytest.mark.parametrize("case", ["tree", "forest"])
+def test_compacted_frames_match_plain(cuda_scene, cuda_forest, case, frac, residual):
+    """Two moving SVGF frames with bounce compaction through the kernels,
+    against the plain versions and against the uncompacted kernel frames,
+    with the launches: K2 on the budget's lanes (2 a frame, 4 with the
+    residual pass) on a single tree, K6 on a forest (6 a frame, 11). About
+    half the lanes hit: a budget of 3/4 of them holds them, 1/8 does not."""
+    scene, _ = cuda_forest if case == "forest" else cuda_scene
+    size = 128
+    cfg = RenderConfig(width=size, height=size, compact_frac=frac, compact_auto=False)
+    rk = Renderer(scene, cfg)
+    rp = Renderer(scene, dataclasses.replace(cfg, pallas_denoise=False), tracer=PLAIN)
+    r0 = Renderer(scene, dataclasses.replace(cfg, compact_frac=0.0))
+    cam = OrbitCamera(width=size, height=size, radius=4.0 if case == "forest" else 2.0)
+    budget = _compact_budget(size * size, cfg)
+    for _ in range(2):
+        cam.rotate(0.5, 0.0)
+        kt.reset_launches()
+        ktc.reset_launches()
+        out_k = rk.step(cam.snapshot())
+        launches = {**kt.LAUNCHES, **ktc.LAUNCHES}
+        out_p, out_0 = rp.step(cam.snapshot()), r0.step(cam.snapshot())
+        n_hit = round(float(out_k.coverage) * size * size)
+        assert (n_hit > budget) == residual
+        extra = 1 if residual else 0
+        if case == "forest":
+            assert launches["k6"] == 6 + 5 * extra and launches["k2"] == 0
+        else:
+            assert launches["k1"] == 1 and launches["k2"] == 2 + 2 * extra
+        for ref in (out_p, out_0):
+            d = (out_k.final - ref.final).abs().amax(-1)
+            assert float((d > 5e-4).float().mean()) <= 0.005
+            assert float(d.max()) < 0.1
+        assert bool(torch.isfinite(out_k.final).all())
+        assert float(out_k.coverage) == float(out_0.coverage)
+
+
+def test_lagged_coverage_copy(cuda_scene):
+    """The Renderer's coverage read: a pinned host copy behind an event,
+    equal to the device value, read without .item()."""
+    from tpuray_torch.render.renderer import LaggedScalar
+    x = torch.rand((), device="cuda")
+    lag = LaggedScalar(x)
+    assert lag.read() == float(x.cpu())

@@ -82,10 +82,15 @@ def test_scene_round_trip_through_numpy(jax_scene):
 
 
 def test_scene_from_numpy_rejects_unported():
-    """Textures still raise; a forest's chunk sizes (0-d arrays) load."""
+    """A texture stack and a forest's chunk sizes (0-d arrays) load."""
     arrays = make_test_scene_arrays(subdiv=0, env_width=16)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        scene_from_numpy(dict(arrays, **{"textures.data": np.zeros((1, 4, 2, 2, 3))}))
+    tex = np.random.default_rng(0).random((1, 4, 2, 2, 3))
+    scene = scene_from_numpy(dict(arrays, **{"textures.data": tex}))
+    assert scene.textures.data.dtype == torch.float32
+    np.testing.assert_array_equal(scene.textures.data.numpy(), tex.astype(np.float32))
+    np.testing.assert_array_equal(scene_to_numpy(scene)["textures.data"],
+                                  tex.astype(np.float32))
+    assert scene_from_numpy(arrays).textures is None
     forest = scene_from_numpy(dict(arrays, **{"bvh.chunk_nodes": np.asarray(128),
                                               "bvh.chunk_tris": np.asarray(256)}))
     assert (forest.bvh.chunk_nodes, forest.bvh.chunk_tris) == (128, 256)

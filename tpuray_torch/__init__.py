@@ -10,20 +10,24 @@ variance pass (K4), the a-trous iteration (K5) and the one-hot hi/lo
 gather (K7, which no path calls). On CPU tensors their wrappers run the
 plain PyTorch versions.
 
-The Renderer renders the default view (SVGF + TAA) of a moving camera on
-the card (device="cuda" by default; pass device="cpu" to render on the
-CPU), on a single BVH or a chunked forest, with the NEE integrator (fused
-or separate walks) or the MIS integrator; see ROADMAP.md for what raises
-NotImplementedError until later slices. A frame differentiates with
-respect to materials and lights (render_frame, train.optimize; the
-traversal is topology only), and train.optimize holds the recovery step.
+The Renderer renders RenderConfig() as it is (SVGF + TAA, bounce
+compaction with its budget buckets) of a moving camera on the card
+(device="cuda" by default; pass device="cpu" to render on the CPU), on a
+single BVH or a chunked forest, with textures and normal maps, with the
+NEE integrator (fused or separate walks) or the MIS integrator. Scenes
+load from OBJ, HDR and image files (scene.builder.build_scene, io/), and
+`python -m tpuray_torch.cli.main render` renders one to PNG; see
+ROADMAP.md for what raises NotImplementedError until later slices. A frame
+differentiates with respect to materials and lights (render_frame,
+train.optimize; the traversal is topology only), and train.optimize holds
+the recovery step.
 """
 
 __version__ = "0.1.0"
 
 from tpuray_torch.scene.types import (  # noqa: F401
-    BVHSoA, Camera, EnvMap, MaterialTable, PointLights, Scene, TriangleSoA,
-    scene_from_numpy, scene_to_numpy,
+    BVHSoA, Camera, EnvMap, MaterialTable, PointLights, Scene, TextureStack,
+    TriangleSoA, scene_from_numpy, scene_to_numpy,
 )
 from tpuray_torch.scene.config import DebugView, RenderConfig  # noqa: F401
 from tpuray_torch.render.frame_state import FrameState  # noqa: F401

@@ -1,0 +1,207 @@
+"""Command-line entry point (counterpart of tpuray/cli/main.py).
+
+Headless progressive rendering to PNG with debug-view selection and
+FrameState checkpoints, and an orbiting-camera PNG sequence, on the CUDA
+card by default (--device cpu renders on the CPU).
+
+Examples:
+  python -m tpuray_torch.cli.main render --frames 8 --out out.png
+  python -m tpuray_torch.cli.main render --scene reference --asset-root DIR
+  python -m tpuray_torch.cli.main animate --frames 24 --every 4
+
+`train`, `view`, `bench` and `render --elastic` raise NotImplementedError
+naming their ROADMAP.md item.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+_VIEWS = {
+    "1spp": "PATH_TRACING_1SPP", "reprojected": "SVGF_REPROJECTED",
+    "variance": "SVGF_VARIANCE", "atrous": "SVGF_ATROUS",
+    "modulate": "SVGF_MODULATE", "taa": "TAA", "final": "FINAL",
+    "accum": "ACCUMULATE_COLOR",
+}
+_SCENES = ["reference", "table", "procedural"]
+
+
+def _build_scene(name: str, quirks: bool):
+    """The named scene on the host; reference and table load their OBJ from
+    the asset roots (FileNotFoundError when it is absent)."""
+    if name == "reference":
+        from tpuray_torch.scene.builder import reference_default_scene
+        return reference_default_scene(reference_quirks=quirks)
+    if name == "table":
+        from tpuray_torch.scene.builder import ObjectSpec, build_scene
+        return build_scene(
+            [ObjectSpec(path="models/table.obj",
+                        material=dict(base_color=(0.7, 0.5, 0.3), roughness=0.4))],
+            reference_quirks=quirks)
+    from tpuray_torch.scene.procedural import make_test_scene
+    return make_test_scene(subdiv=3)
+
+
+def _config(args, **fields):
+    from tpuray_torch.scene.config import RenderConfig
+    cfg = RenderConfig.load(args.config) if args.config else RenderConfig()
+    return cfg.replace(width=args.size, height=args.size, **fields)
+
+
+def _frame(r, camera, metrics) -> None:
+    """One frame, timed to its end (the copy of one pixel waits for it)."""
+    t0 = time.perf_counter()
+    out = r.step(camera)
+    out.final[:1, :1].cpu()
+    metrics.record(time.perf_counter() - t0)
+
+
+def cmd_render(args) -> int:
+    from tpuray_torch.io.image import write_png
+    from tpuray_torch.render.renderer import Renderer
+    from tpuray_torch.scene.camera import OrbitCamera
+    from tpuray_torch.scene.config import DebugView
+    from tpuray_torch.utils.metrics import FrameMetrics
+
+    if args.elastic:
+        raise NotImplementedError(
+            "render --elastic (utils/elastic.py) is ROADMAP.md item 15")
+    cfg = _config(args, max_tracing_depth=args.depth,
+                  reference_quirks=args.reference_quirks)
+    scene = _build_scene(args.scene, args.reference_quirks)
+    cam = OrbitCamera(width=cfg.width, height=cfg.height,
+                      yaw_deg=args.yaw, pitch_deg=args.pitch, radius=args.radius)
+    r = Renderer(scene, cfg, device=args.device)
+    if args.resume:
+        from tpuray_torch.utils.checkpoint import load_frame_state
+        r.restore(load_frame_state(args.resume, r.device))
+
+    metrics = FrameMetrics(cfg.width, cfg.height, cfg.max_tracing_depth)
+    for _ in range(args.frames):
+        _frame(r, cam.snapshot(), metrics)
+    print(metrics.summary(), file=sys.stderr)
+
+    write_png(args.out, r.display_image(DebugView[_VIEWS[args.view]]))
+    print(f"wrote {args.out} ({cfg.width}x{cfg.height}, {args.frames} frames, "
+          f"view={args.view})", file=sys.stderr)
+    if args.checkpoint:
+        from tpuray_torch.utils.checkpoint import save_frame_state
+        save_frame_state(args.checkpoint, r.state)
+        print(f"saved state -> {args.checkpoint}", file=sys.stderr)
+    if args.dump_all_views:
+        base = args.out.rsplit(".", 1)[0]
+        for name, enum_name in _VIEWS.items():
+            write_png(f"{base}_{name}.png", r.display_image(DebugView[enum_name]))
+    return 0
+
+
+def cmd_animate(args) -> int:
+    """Step an orbiting camera each frame and write a PNG sequence (the
+    original renderer's mouse-drag orbit, headless)."""
+    from tpuray_torch.io.image import write_png
+    from tpuray_torch.render.renderer import Renderer
+    from tpuray_torch.scene.camera import OrbitCamera
+    from tpuray_torch.scene.config import DebugView
+    from tpuray_torch.utils.metrics import FrameMetrics
+
+    cfg = _config(args)
+    scene = _build_scene(args.scene, False)
+    cam = OrbitCamera(width=cfg.width, height=cfg.height,
+                      yaw_deg=args.yaw, pitch_deg=args.pitch, radius=args.radius)
+    r = Renderer(scene, cfg, device=args.device)
+    metrics = FrameMetrics(cfg.width, cfg.height, cfg.max_tracing_depth)
+    view = DebugView[_VIEWS[args.view]]
+    for i in range(args.frames):
+        cam.rotate(args.deg_per_frame, 0.0)
+        _frame(r, cam.snapshot(), metrics)
+        if i % args.every == 0:
+            write_png(f"{args.out_prefix}_{i:04d}.png", r.display_image(view))
+    print(metrics.summary(), file=sys.stderr)
+    return 0
+
+
+def _not_ported(what: str, item: str):
+    def cmd(args) -> int:
+        raise NotImplementedError(f"{what} is ROADMAP.md item {item}")
+    return cmd
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="tpuray_torch")
+    p.add_argument("--asset-root", default=None,
+                   help="extra asset root searched before the built-in one "
+                        "(also settable via $TPURAY_ASSET_ROOT)")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    def device_option(sp):
+        sp.add_argument("--device", default="cuda",
+                        help="torch device (cuda raises without a CUDA card)")
+
+    pr = sub.add_parser("render", help="progressive render to PNG")
+    pr.add_argument("--scene", default="procedural", choices=_SCENES)
+    pr.add_argument("--frames", type=int, default=8)
+    pr.add_argument("--size", type=int, default=256)
+    pr.add_argument("--depth", type=int, default=2)
+    pr.add_argument("--view", default="final", choices=sorted(_VIEWS))
+    pr.add_argument("--out", default="render.png")
+    pr.add_argument("--config", default=None, help="RenderConfig JSON file")
+    pr.add_argument("--yaw", type=float, default=0.0)
+    pr.add_argument("--pitch", type=float, default=10.0)
+    pr.add_argument("--radius", type=float, default=2.0)
+    pr.add_argument("--checkpoint", default=None, help="save FrameState npz")
+    pr.add_argument("--resume", default=None, help="load FrameState npz")
+    pr.add_argument("--elastic", default=None, metavar="CKPT",
+                    help="supervised loop with restore and replay (not ported)")
+    pr.add_argument("--checkpoint-every", type=int, default=8)
+    pr.add_argument("--reference-quirks", action="store_true")
+    pr.add_argument("--dump-all-views", action="store_true")
+    device_option(pr)
+    pr.set_defaults(fn=cmd_render)
+
+    pt = sub.add_parser("train", help="differentiable material recovery demo "
+                        "(not ported)")
+    pt.add_argument("--scene", default="procedural", choices=_SCENES)
+    pt.add_argument("--steps", type=int, default=20)
+    pt.add_argument("--size", type=int, default=64)
+    pt.add_argument("--depth", type=int, default=1)
+    pt.add_argument("--lr", type=float, default=0.05)
+    pt.add_argument("--out-prefix", default="train")
+    pt.set_defaults(fn=_not_ported("train (with the projected Adam step)", "15"))
+
+    pa = sub.add_parser("animate", help="orbiting-camera PNG sequence")
+    pa.add_argument("--scene", default="procedural", choices=_SCENES)
+    pa.add_argument("--frames", type=int, default=24)
+    pa.add_argument("--size", type=int, default=256)
+    pa.add_argument("--deg-per-frame", type=float, default=1.5)
+    pa.add_argument("--every", type=int, default=1, help="write every k-th frame")
+    pa.add_argument("--view", default="final", choices=sorted(_VIEWS))
+    pa.add_argument("--out-prefix", default="anim")
+    pa.add_argument("--config", default=None)
+    pa.add_argument("--yaw", type=float, default=0.0)
+    pa.add_argument("--pitch", type=float, default=10.0)
+    pa.add_argument("--radius", type=float, default=2.0)
+    device_option(pa)
+    pa.set_defaults(fn=cmd_animate)
+
+    pv = sub.add_parser("view", help="interactive browser viewer (not ported)")
+    pv.add_argument("--scene", default="procedural", choices=_SCENES)
+    pv.add_argument("--size", type=int, default=400)
+    pv.add_argument("--host", default="127.0.0.1")
+    pv.add_argument("--port", type=int, default=8008)
+    pv.add_argument("--config", default=None)
+    pv.add_argument("--reference-quirks", action="store_true")
+    pv.set_defaults(fn=_not_ported("view (viewer/)", "15"))
+
+    pb = sub.add_parser("bench", help="run the benchmark (not ported)")
+    pb.set_defaults(fn=_not_ported("bench (the port's bench)", "3"))
+
+    args = p.parse_args(argv)
+    if args.asset_root:
+        from tpuray_torch.io.filesystem import add_root
+        add_root(args.asset_root)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

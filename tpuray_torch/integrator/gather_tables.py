@@ -3,15 +3,18 @@ tpuray/integrator/gather_tables.py).
 
 What the JAX tables compute, as plain row indexing: one (T, 26) row per
 triangle [p0 p1 p2 | n0 n1 n2 | uv0 uv1 uv2 | mat_id obj_id], one (M, 18)
-row per material, one (L, 6) row per point light, and the env-map NEE
-table. The TPU layouts (select chains, quad packing, bf16 texture stacks)
-are not needed on the card.
+row per material, one (L, 6) row per point light, the env-map NEE table,
+and the combined texture map in bf16 (pack_texture_stack, with the JAX
+package's 1/255 quantisation and so its bits). The TPU layouts (select
+chains, quad packing) are not needed on the card: a bilinear fetch is four
+plain reads.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from tpuray_torch.integrator.disney import ShadeMaterial
@@ -111,6 +114,67 @@ def pack_lights(lights) -> Tensor:
     return torch.cat([lights.position, lights.radiance], dim=-1)
 
 
+INV_255 = float(np.float32(1.0 / 255.0))
+
+
+def pack_texture_stack(tex: Tensor) -> Tensor:
+    """(O, 4, H, W, 3) layers -> (O, H, W, 5) bf16 combined map
+    [albedo.rgb, metallic.r, roughness.r] * 255: the values, rounding and
+    bits of tpuray/integrator/gather_tables.py:pack_texture_stack without
+    its quad packing. Texels on the k/255 grid (decoded 8-bit images) are
+    integers after the scaling, exact in bf16; float-valued layers quantise
+    by up to ~0.2%."""
+    combined = torch.cat([tex[:, 0], tex[:, 1, ..., :1], tex[:, 3, ..., :1]],
+                         dim=-1)
+    return (combined * 255.0).to(torch.bfloat16)
+
+
+def _bilinear_taps(h: int, w: int, u: Tensor, v: Tensor):
+    """GL_LINEAR / CLAMP_TO_EDGE taps of an (H, W) image at (u, v) in [0, 1]
+    -> (y0, y1, x0, x1, fx, fy), fx/fy (N, 1)."""
+    x = u * w - 0.5
+    y = v * h - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    x0i = torch.clamp(x0.to(torch.int64), 0, w - 1)
+    y0i = torch.clamp(y0.to(torch.int64), 0, h - 1)
+    x1i = torch.clamp_max(x0i + 1, w - 1)
+    y1i = torch.clamp_max(y0i + 1, h - 1)
+    return y0i, y1i, x0i, x1i, fx, fy
+
+
+def bilinear(c00: Tensor, c10: Tensor, c01: Tensor, c11: Tensor, fx: Tensor,
+             fy: Tensor) -> Tensor:
+    return (c00 * (1 - fx) + c10 * fx) * (1 - fy) + (c01 * (1 - fx) + c11 * fx) * fy
+
+
+def tex_fetch_packed(tex_q: Tensor, obj: Tensor, u: Tensor, v: Tensor) -> Tensor:
+    """Per-ray bilinear fetch from the (O, H, W, C) bf16 combined map at
+    object obj (clamped) and (u, v) in [0, 1] -> (N, C) f32 / 255."""
+    _, h, w, _ = tex_q.shape
+    y0, y1, x0, x1, fx, fy = _bilinear_taps(h, w, u, v)
+
+    def tap(y, x):
+        return tex_q[obj, y, x].to(torch.float32) * INV_255
+
+    return bilinear(tap(y0, x0), tap(y0, x1), tap(y1, x0), tap(y1, x1), fx, fy)
+
+
+def tex_fetch(layer: Tensor, obj: Tensor, uv: Tensor) -> Tensor:
+    """Bilinear fetch from one f32 (O, H, W, 3) texture layer at the hits'
+    uv (GL images are y-up) -> (N, 3); tpuray/integrator/path_tracer.py:
+    _tex_fetch."""
+    o, h, w, _ = layer.shape
+    u = torch.clamp(uv[..., 0], 0.0, 1.0)
+    v = torch.clamp(1.0 - uv[..., 1], 0.0, 1.0)
+    y0, y1, x0, x1, fx, fy = _bilinear_taps(h, w, u, v)
+    obj = torch.clamp(obj, 0, o - 1)
+    return bilinear(layer[obj, y0, x0], layer[obj, y0, x1], layer[obj, y1, x0],
+                    layer[obj, y1, x1], fx, fy)
+
+
 @dataclasses.dataclass(frozen=True)
 class PackedScene:
     """Shading tables, built once per scene."""
@@ -121,12 +185,12 @@ class PackedScene:
     env_image: Tensor    # (H, W, 3)
     env_cache: Tensor    # (H, W, 3) [inv_cdf_x, inv_cdf_y, pdf] (MIS)
     env_nee_t: Tensor    # (H, W, 8) [L, radiance, pdf, 0]
+    tex_q: Optional[Tensor] = None       # (O, H, W, 5) bf16 combined map
+    tex_normal: Optional[Tensor] = None  # (O, H, W, 3) f32 normal layer
 
 
 def pack_scene_tables(scene) -> PackedScene:
-    if scene.textures is not None:
-        raise NotImplementedError(
-            "scenes with textures are not ported yet (ROADMAP.md item 9)")
+    tex = scene.textures.data if scene.textures is not None else None
     return PackedScene(
         tri_table=pack_tri_table(scene.triangles),
         mat_table=pack_material_table(scene.materials),
@@ -134,4 +198,6 @@ def pack_scene_tables(scene) -> PackedScene:
         env_image=scene.envmap.image,
         env_cache=scene.envmap.cache,
         env_nee_t=pack_env_nee_table(scene.envmap.image, scene.envmap.cache),
+        tex_q=pack_texture_stack(tex) if tex is not None else None,
+        tex_normal=tex[:, 2].contiguous() if tex is not None else None,
     )

@@ -10,7 +10,9 @@ single tree to K1 and per-ray origins to K3 (kernels/trace.py). On a
 single tree with cfg.fused_secondary each bounce's three walks are one K2
 walk (trace_multi); otherwise, and always on a forest, they are separate
 walks in the JAX package's order: env shadow, point shadow, bounce ray.
-integrator="mis" hands the frame to integrator/mis.py.
+integrator="mis" hands the frame to integrator/mis.py. With
+cfg.compact_frac > 0 the NEE integrator shades only the lanes whose primary
+ray hit, packed densely into a buffer of compact_frac * N lanes (trace_paths).
 
 Differentiable as the JAX package's is: the traversal is topology only (its
 entries run under torch.no_grad, kernels/trace.py), resolve_hit detaches t
@@ -28,7 +30,8 @@ import torch
 from tpuray_torch.integrator import disney
 from tpuray_torch.integrator.disney import ShadeMaterial, safe_normalize
 from tpuray_torch.integrator.gather_tables import (
-    PackedScene, fetch_material, fetch_rows, fetch_tri, pack_scene_tables)
+    PackedScene, fetch_material, fetch_rows, fetch_tri, pack_scene_tables,
+    tex_fetch, tex_fetch_packed)
 from tpuray_torch.integrator.intersect import INF, barycentrics, cross
 from tpuray_torch.kernels import trace as ktrace
 from tpuray_torch.kernels import trace_chunked as ktc
@@ -42,16 +45,9 @@ EPS = float(np.float32(1e-6))
 
 
 def check_config(cfg: RenderConfig) -> None:
-    """Raise for the integrator options this port does not have yet."""
+    """Raise for an integrator this port does not know."""
     if cfg.integrator not in ("nee", "mis"):
         raise ValueError(f"integrator={cfg.integrator!r}: 'nee' or 'mis'")
-    if cfg.compact_frac > 0.0 or cfg.compact_auto:
-        raise NotImplementedError(
-            "bounce compaction (compact_frac > 0 or compact_auto=True) is "
-            "ROADMAP.md item 10; set compact_frac=0.0, compact_auto=False")
-    if cfg.use_normal_map:
-        raise NotImplementedError(
-            "use_normal_map (textures) is ROADMAP.md item 9")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,8 +108,8 @@ def _abs(x: Tensor) -> Tensor:
 
 
 class Hit(NamedTuple):
-    """What shading reads of a hit. (The JAX Hit's uv feeds only textures,
-    ROADMAP.md item 9; its geometric normal has no reader.)"""
+    """What shading reads of a hit. (The JAX Hit's geometric normal has no
+    reader.)"""
 
     valid: Tensor   # (N,) bool
     point: Tensor   # (N, 3)
@@ -121,9 +117,30 @@ class Hit(NamedTuple):
     mat: ShadeMaterial
 
 
+def _normal_mapped(pk: PackedScene, tri, ns: Tensor, uv: Tensor) -> Tensor:
+    """The shading normal bent by the normal map (texture layer 2) through
+    the triangle's tangent frame (tpuray/integrator/path_tracer.py:203-216)."""
+    e1 = tri.p1 - tri.p0
+    e2 = tri.p2 - tri.p0
+    duv1 = tri.uv1 - tri.uv0
+    duv2 = tri.uv2 - tri.uv0
+    det = duv1[..., 0] * duv2[..., 1] - duv2[..., 0] * duv1[..., 1]
+    f = 1.0 / torch.where(torch.abs(det) < 1e-12, 1e-12, det)
+    tangent = f[..., None] * (duv2[..., 1:2] * e1 - duv1[..., 1:2] * e2)
+    tangent = safe_normalize(tangent)
+    bitangent = cross(tangent, ns)
+    tex_n = tex_fetch(pk.tex_normal, tri.obj_id, uv) * 2.0 - 1.0
+    tex_n = safe_normalize(tex_n)
+    mapped = (tex_n[..., 0:1] * tangent + tex_n[..., 1:2] * bitangent
+              + tex_n[..., 2:3] * ns)
+    return safe_normalize(mapped)
+
+
 def resolve_hit(pk: PackedScene, orig: Tensor, d: Tensor, t: Tensor,
                 idx: Tensor, cfg: RenderConfig) -> Hit:
-    """Hit point, shading normal and material from (t, triangle index)."""
+    """Hit point, shading normal and material from (t, triangle index). A
+    negative base_color, metallic or roughness takes the texel of the
+    scene's texture stack, and is clamped to its magnitude without one."""
     valid = idx >= 0
     i = torch.clamp_min(idx, 0)
     # topology only: no gradient through the hit distance; point keeps the
@@ -143,10 +160,24 @@ def resolve_hit(pk: PackedScene, orig: Tensor, d: Tensor, t: Tensor,
     ns = torch.where(inside[..., None], -ns, ns)
 
     mat = fetch_material(pk.mat_table, tri.mat_id)
-    # texture sentinels without a texture stack: clamp so shading stays sane
-    mat = mat._replace(base_color=_abs(mat.base_color),
-                       metallic=_abs(mat.metallic),
-                       roughness=_abs(mat.roughness))
+    if pk.tex_q is not None:
+        uv = a[..., None] * tri.uv0 + b[..., None] * tri.uv1 + c[..., None] * tri.uv2
+        obj = torch.clamp(tri.obj_id, 0, pk.tex_q.shape[0] - 1)
+        tu = torch.clamp(uv[..., 0], 0.0, 1.0)
+        tv = torch.clamp(1.0 - uv[..., 1], 0.0, 1.0)  # GL images are y-up
+        texel = tex_fetch_packed(pk.tex_q, obj, tu, tv)
+        base_neg = torch.any(mat.base_color < 0.0, dim=-1, keepdim=True)
+        mat = mat._replace(
+            base_color=torch.where(base_neg, texel[..., 0:3], mat.base_color),
+            metallic=torch.where(mat.metallic < 0.0, texel[..., 3], mat.metallic),
+            roughness=torch.where(mat.roughness < 0.0, texel[..., 4], mat.roughness))
+        if cfg.use_normal_map:
+            ns = _normal_mapped(pk, tri, ns, uv)
+    else:
+        # sentinels without a texture stack: clamp so shading stays sane
+        mat = mat._replace(base_color=_abs(mat.base_color),
+                           metallic=_abs(mat.metallic),
+                           roughness=_abs(mat.roughness))
     return Hit(valid=valid, point=point, normal=ns, mat=mat)
 
 
@@ -403,6 +434,107 @@ def _shade_loop(pk: PackedScene, tables: ktrace.TraceTables,
                      normal0=normal0)
 
 
+def _compact_budget(n: int, cfg: RenderConfig) -> int:
+    """Compacted-wavefront size: compact_frac * n rounded up to 512 lanes;
+    0 (no compaction) when that is not below n."""
+    if cfg.compact_frac <= 0.0:
+        return 0
+    budget = (int(n * cfg.compact_frac) + 511) // 512 * 512
+    if budget <= 0 or budget >= n:
+        return 0
+    return budget
+
+
+def host_count(count: Tensor) -> int:
+    """A device count read on the host: the one read of a frame, the number
+    of primary hits, which decides whether the residual pass runs. It waits
+    for the primary trace."""
+    return int(count)
+
+
+def _merge_residual(out: _ShadeOut, r: _ShadeOut, r_alive: Tensor) -> _ShadeOut:
+    """The compacted pass's outputs with the residual pass's added. Lanes the
+    residual pass masked off report a bounce-0 miss, which is scrubbed (it
+    would hand them a second env contribution)."""
+    mm = r.miss_any & r_alive
+    return _ShadeOut(
+        light=out.light + r.light, miss_any=out.miss_any | mm,
+        miss_dir=torch.where(mm[..., None], r.miss_dir, out.miss_dir),
+        miss_reduction=torch.where(mm[..., None], r.miss_reduction,
+                                   out.miss_reduction),
+        emission0=out.emission0 + r.emission0, albedo0=out.albedo0 + r.albedo0,
+        valid0=out.valid0 | r.valid0, point0=out.point0 + r.point0,
+        normal0=out.normal0 + r.normal0)
+
+
+def _shade_compacted(pk: PackedScene, tables: ktrace.TraceTables,
+                     tracer: Tracer, cfg: RenderConfig, orig: Tensor,
+                     d: Tensor, px: Tensor, py: Tensor, frame: int,
+                     t0: Tensor, idx0: Tensor, budget: int, aniso: bool
+                     ) -> _ShadeOut:
+    """_shade_loop over the first `budget` lanes whose primary ray hit, in
+    tile order, then scattered back (tpuray/integrator/path_tracer.py:
+    600-695). Padding lanes (fewer hits than the budget) trace as misses and
+    are masked at the scatter. Sample streams are keyed on pixel, never on
+    lane, so every pixel gets the uncompacted loop's math. When more lanes
+    hit than the budget, a residual full-width pass shades the rest."""
+    n = d.shape[0]
+    dev = d.device
+    coherent = cfg.tile_coherent_sampling
+    alive0 = idx0 >= 0
+    rank = torch.cumsum(alive0.to(torch.int32), 0) - 1
+    in_sel = alive0 & (rank < budget)
+    # sel[k] = the lane of rank k, without a host sync: each selected lane
+    # writes its id to slot rank, the others to a dropped slot budget;
+    # slots past the hit count keep lane 0 (masked by lane_ok)
+    slot = torch.where(in_sel, rank.to(torch.int64), budget)
+    sel = torch.zeros(budget + 1, dtype=torch.int64, device=dev).scatter_(
+        0, slot, torch.arange(n, device=dev))[:budget]
+    n_alive = rank[-1] + 1
+    lane_ok = torch.arange(budget, device=dev) < n_alive
+
+    # one gather per dtype
+    gf = torch.cat([orig, d, t0[:, None]], dim=1)[sel]
+    gi = torch.stack([px.to(torch.int64), py.to(torch.int64),
+                      idx0.to(torch.int64)], dim=1)[sel]
+    c_d = gf[:, 3:6]
+    c = _shade_loop(
+        pk, tables, tracer, cfg, gf[:, 0:3], c_d, gi[:, 0].to(px.dtype),
+        gi[:, 1].to(py.dtype), frame, torch.where(lane_ok, gf[:, 6], INF),
+        torch.where(lane_ok, gi[:, 2], -1).to(idx0.dtype),
+        # tile keying is pixel-derived (px // 32), never lane position
+        coherent, aniso)
+
+    # one scatter of every per-lane output; miss_dir goes as a delta on d so
+    # that lanes that never miss keep a unit direction (a zero one would NaN
+    # the env fetch's normalisation, and its gradient)
+    packed = torch.cat([
+        c.light, c.emission0, c.albedo0, c.point0, c.normal0,
+        c.miss_dir - c_d,
+        torch.where(c.miss_any[..., None], c.miss_reduction, 0.0),
+        c.valid0[..., None].to(torch.float32),
+        c.miss_any[..., None].to(torch.float32)], dim=1)
+    scattered = torch.zeros((n, 23), dtype=torch.float32, device=dev).index_add(
+        0, sel, torch.where(lane_ok[..., None], packed, 0.0))
+    # primary misses are never selected: they miss at bounce 0 with
+    # throughput 1
+    out = _ShadeOut(
+        light=scattered[:, 0:3], emission0=scattered[:, 3:6],
+        albedo0=scattered[:, 6:9], point0=scattered[:, 9:12],
+        normal0=scattered[:, 12:15], miss_dir=d + scattered[:, 15:18],
+        miss_reduction=torch.where((~alive0)[..., None], 1.0, scattered[:, 18:21]),
+        valid0=scattered[:, 21] > 0.5,
+        miss_any=(scattered[:, 22] > 0.5) | ~alive0)
+
+    if host_count(n_alive) <= budget:
+        return out
+    r_alive = alive0 & ~in_sel
+    r = _shade_loop(pk, tables, tracer, cfg, orig, d, px, py, frame,
+                    torch.where(r_alive, t0, INF), torch.where(r_alive, idx0, -1),
+                    coherent, aniso)
+    return _merge_residual(out, r, r_alive)
+
+
 def trace_paths(scene, orig: Tensor, d: Tensor, px: Tensor, py: Tensor,
                 frame: int, cfg: RenderConfig, common_origin: bool = False,
                 tracer: Tracer = KERNELS,
@@ -414,7 +546,13 @@ def trace_paths(scene, orig: Tensor, d: Tensor, px: Tensor, py: Tensor,
     common_origin: every ray shares one origin); px/py: (N,) integer global
     pixel coords (the RNG keys); frame: int. tables/pk: the scene's packed
     traversal (pack_traversal) and shading tables, built here when not
-    given."""
+    given.
+
+    cfg.compact_frac > 0 shades only the lanes that hit, at
+    _compact_budget(N) lanes (_shade_compacted): per pixel the same math,
+    so the same result up to the order of float operations. The residual
+    pass that keeps a frame exact when more lanes hit than the budget is a
+    host branch on the hit count, the one value a frame reads back."""
     check_config(cfg)
     n = d.shape[0]
     orig = orig.expand(n, 3)
@@ -428,8 +566,13 @@ def trace_paths(scene, orig: Tensor, d: Tensor, px: Tensor, py: Tensor,
 
     t0, idx0 = trace(tracer, tables, orig, d, INF,
                      common_origin=common_origin)
-    out = _shade_loop(pk, tables, tracer, cfg, orig, d, px, py, int(frame),
-                      t0, idx0, cfg.tile_coherent_sampling, aniso)
+    budget = _compact_budget(n, cfg)
+    if budget:
+        out = _shade_compacted(pk, tables, tracer, cfg, orig, d, px, py,
+                               int(frame), t0, idx0, budget, aniso)
+    else:
+        out = _shade_loop(pk, tables, tracer, cfg, orig, d, px, py, int(frame),
+                          t0, idx0, cfg.tile_coherent_sampling, aniso)
 
     env_rad = env.env_radiance(pk.env_image, out.miss_dir)
     light = out.light + torch.where(out.miss_any[..., None],

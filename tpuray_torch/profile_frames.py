@@ -1,7 +1,8 @@
 """Where a moving-camera frame's time goes, on the card.
 
     python -m tpuray_torch.profile_frames [--frames 8] [--size 800] [--out DIR]
-        [--runs svgf_off,svgf_on,mis,separate,forest_131k,train_step]
+        [--runs svgf_off,svgf_on,mis,separate,forest_131k,train_step,
+                file_20k,file_20k_off,file_5k,file_5k_off]
 
 Renders size x size frames, moving the camera 0.5 degrees a frame, for
 each run: the chip_smoke.py test scene (20,482 triangles) with SVGF off,
@@ -11,8 +12,15 @@ for both); the 131k-triangle forest
 (make_large_scene(25 spheres, subdiv 4), SVGF on, OrbitCamera radius 4);
 and a train step on the test scene (chip_smoke.py phase 15: render_flat,
 its MSE's backward through every material and light field, Adam on
-base_color; a "frame" of this run is a step). For each: 3 warm-up frames and `--frames` synchronised frames timed on the
-host clock, every run before any profiling; then `--frames` frames of each
+base_color; a "frame" of this run is a step); and the test scene loaded
+from an OBJ file by build_scene (file_scene: textured, the -1 material
+sentinels, 4 point lights) under the default RenderConfig, compaction and
+its budget buckets on, and with compaction off (_off): at subdiv 5 (20,482
+triangles, a chunked forest by the layout rule: K6) and at subdiv 4 (5,122,
+a single tree: K1 and K2). For each: 3 warm-up frames (24 under
+compact_auto, past the first budget switch after frame 16) and `--frames`
+synchronised frames timed on the host clock, every run before any
+profiling; then `--frames` frames of each
 under torch.profiler. Prints per frame the wall time, the device kernels,
 their summed device time, the device's busy share (device time over the
 unprofiled wall time), each hand-written kernel's share of the device time
@@ -44,9 +52,11 @@ from tpuray_torch.kernels import reproject as kr
 from tpuray_torch.kernels import trace as kt
 from tpuray_torch.kernels import trace_chunked as ktc
 from tpuray_torch.render.renderer import Renderer
+from tpuray_torch.scene import builder
 from tpuray_torch.scene.camera import OrbitCamera
 from tpuray_torch.scene.config import RenderConfig
-from tpuray_torch.scene.procedural import make_large_scene, make_test_scene
+from tpuray_torch.scene.procedural import (
+    make_large_scene, make_test_scene, write_test_scene_obj)
 from tpuray_torch.train import optimize
 
 # device-kernel names of the hand-written kernels (csrc/*.cu), matched as
@@ -63,27 +73,52 @@ def _which(name: str) -> str | None:
     return next((k for k, v in _OURS.items() if v in name), None)
 
 
+# file_scene's scale: the sphere and ground cover ~10% of the default view
+# (the original renderer's clock covers ~8% of its startup view)
+FILE_SCENE_SCALE = (2.0, 2.0, 2.0)
+
+
+def file_scene(subdiv: int, device="cuda", obj_dir: Path = Path("build")):
+    """make_test_scene's geometry written as an OBJ with non-constant
+    texture coordinates under obj_dir, loaded by build_scene with procedural
+    texture layers, the -1 material sentinels and the 4 point lights of
+    reference_default_scene."""
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    path = str(obj_dir / f"test_scene_{subdiv}.obj")
+    write_test_scene_obj(path, subdiv)
+    spec = builder.ObjectSpec(path=path, material=dict(builder.DEFAULT_MATERIAL),
+                              scale=FILE_SCENE_SCALE)
+    return builder.build_scene([spec], point_lights=builder.DEFAULT_LIGHTS,
+                               with_textures=True, device=device)
+
+
 def _kernels(prof) -> list[tuple[str, float]]:
     """(name, device us) of every device kernel the profiler saw."""
     return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-class _Run:
+class FrameRun:
     """A Renderer under one config with its moving camera."""
 
     def __init__(self, scene, cfg: RenderConfig, tag: str, **cam_kw):
         self.tag, self.cfg = tag, cfg
         self.r = Renderer(scene, cfg)
         self.cam = OrbitCamera(width=cfg.width, height=cfg.height, **cam_kw)
+        # past the first budget switch (after 2 * Renderer._TUNE_EVERY frames)
+        self.warmup = 3 * Renderer._TUNE_EVERY if cfg.compact_auto else 3
 
     def step(self):
         self.cam.rotate(0.5, 0.0)
         return self.r.step(self.cam.snapshot())
 
+    def current_cfg(self) -> RenderConfig:
+        """The config of the next frame (its compaction bucket)."""
+        return self.r.frame_cfg
+
     def time_frames(self, frames: int) -> list[float]:
-        """3 warm-up frames, then `frames` synchronised frames (ms)."""
-        for _ in range(3):
+        """The warm-up frames, then `frames` synchronised frames (ms)."""
+        for _ in range(self.warmup):
             self.step()
         torch.cuda.synchronize()
         wall = []
@@ -112,8 +147,8 @@ class _Run:
                    device_ms_per_frame=device_ms, busy_share=device_ms / wall_ms,
                    launches={**kt.LAUNCHES, **ktc.LAUNCHES, **kr.LAUNCHES,
                              **ka.LAUNCHES})
-        tag, cfg = self.tag, self.cfg
-        print(f"[{tag}] {cfg.width}x{cfg.height}: wall median {wall_ms:.3f} ms "
+        tag, cfg = self.tag, self.current_cfg()
+        print(f"[{tag}] {cfg.width}x{cfg.height}, compact_frac {cfg.compact_frac}: wall median {wall_ms:.3f} ms "
               f"(min {min(wall):.3f}, max {max(wall):.3f}) over {len(wall)}; "
               f"{res['kernels_per_frame']:.1f} device kernels and "
               f"{device_ms:.3f} device ms per frame; busy share "
@@ -133,7 +168,7 @@ class _Run:
         return res
 
 
-class _TrainRun(_Run):
+class _TrainRun(FrameRun):
     """make_train_step's step from base_color * 0.4 + 0.3 toward the
     scene's own render (cli/main.py:cmd_train's recovery)."""
 
@@ -149,6 +184,10 @@ class _TrainRun(_Run):
             rebuild, cfg, h, w,
             lambda _: torch.optim.Adam([params["materials"].base_color], lr=1e-2))
         self.state = init(params)
+        self.warmup = 3
+
+    def current_cfg(self) -> RenderConfig:
+        return self.cfg
 
     def step(self):
         self.state, loss = self.train_step(self.state, self.target, self.cam, 0)
@@ -160,7 +199,8 @@ def main() -> None:
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--size", type=int, default=800)
     ap.add_argument("--out", type=Path, default=Path("build/profile"))
-    ap.add_argument("--runs", default="svgf_off,svgf_on,mis,separate,forest_131k,train_step")
+    ap.add_argument("--runs", default="svgf_off,svgf_on,mis,separate,forest_131k,train_step,"
+                    "file_20k,file_20k_off,file_5k,file_5k_off")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_frames needs a CUDA device")
@@ -169,22 +209,41 @@ def main() -> None:
     cfg = RenderConfig(width=args.size, height=args.size, compact_frac=0.0,
                        compact_auto=False)
     test = make_test_scene(subdiv=5, env_width=512, device="cuda")
+    default = RenderConfig(width=args.size, height=args.size)
+    files = {}
+
+    def file_run(subdiv, tag, run_cfg):
+        if subdiv not in files:
+            files[subdiv] = file_scene(subdiv)
+        return FrameRun(files[subdiv], run_cfg, tag)
+
     make = {
-        "svgf_off": lambda: _Run(test, dataclasses.replace(cfg, enable_svgf=False), "svgf_off"),
-        "svgf_on": lambda: _Run(test, cfg, "svgf_on"),
-        "mis": lambda: _Run(test, dataclasses.replace(cfg, integrator="mis"), "mis"),
-        "separate": lambda: _Run(test, dataclasses.replace(cfg, fused_secondary=False),
-                                 "separate"),
-        "forest_131k": lambda: _Run(make_large_scene(n_spheres=25, subdiv=4, env_width=512,
-                                                     device="cuda"), cfg, "forest_131k",
-                                    radius=4.0),
+        "svgf_off": lambda: FrameRun(test, dataclasses.replace(cfg, enable_svgf=False),
+                                     "svgf_off"),
+        "svgf_on": lambda: FrameRun(test, cfg, "svgf_on"),
+        "mis": lambda: FrameRun(test, dataclasses.replace(cfg, integrator="mis"), "mis"),
+        "separate": lambda: FrameRun(test, dataclasses.replace(cfg, fused_secondary=False),
+                                     "separate"),
+        "forest_131k": lambda: FrameRun(make_large_scene(n_spheres=25, subdiv=4,
+                                                         env_width=512, device="cuda"),
+                                        cfg, "forest_131k", radius=4.0),
         "train_step": lambda: _TrainRun(test, cfg, "train_step"),
+        "file_20k": lambda: file_run(5, "file_20k", default),
+        "file_20k_off": lambda: file_run(5, "file_20k_off", cfg),
+        "file_5k": lambda: file_run(4, "file_5k", default),
+        "file_5k_off": lambda: file_run(4, "file_5k_off", cfg),
     }
     runs = [make[tag]() for tag in args.runs.split(",")]
     # all host-clock timing first: the profiler leaves Python objects behind
     walls = [run.time_frames(args.frames) for run in runs]
     res = {run.tag: run.profile_frames(args.frames, wall, args.out)
            for run, wall in zip(runs, walls)}
+    for tag in ("file_20k", "file_5k"):
+        if tag in res and tag + "_off" in res:
+            on, off = res[tag], res[tag + "_off"]
+            print(f"[{tag}] compaction saves {off['device_ms_per_frame'] - on['device_ms_per_frame']:.3f} "
+                  f"device ms, {off['kernels_per_frame'] - on['kernels_per_frame']:.1f} device "
+                  f"kernels and {off['wall_ms'] - on['wall_ms']:.3f} wall ms per frame", flush=True)
     if "svgf_off" in res and "svgf_on" in res:
         off, on = res["svgf_off"], res["svgf_on"]
         print(f"the denoiser adds {on['kernels_per_frame'] - off['kernels_per_frame']:.1f} "

@@ -2,10 +2,14 @@
 
 One frame: camera rays in 32x32 tile order, the path tracer (on a single
 tree K1 for the primaries and K2 per bounce, or K3 for separate walks and
-the MIS integrator; on a chunked forest K6 for every walk), progressive
-accumulation, the G-buffer, the SVGF + TAA denoiser (K4 for reproject +
-variance, K5 for the a-trous chain; denoise/svgf.py), and the FrameState
-update.
+the MIS integrator; on a chunked forest K6 for every walk; with compaction
+the bounces shade only the lanes that hit), progressive accumulation, the
+G-buffer, the SVGF + TAA denoiser (K4 for reproject + variance, K5 for the
+a-trous chain; denoise/svgf.py), and the FrameState update.
+
+The Renderer picks the compaction budget of the next frames from the hit
+coverage of an earlier frame (cfg.compact_auto), read a period late so
+that the read never waits for the device.
 """
 from __future__ import annotations
 
@@ -147,15 +151,48 @@ def select_debug_view(outputs: FrameOutputs, view: DebugView) -> Tensor:
     return table[view]
 
 
+class LaggedScalar:
+    """A device scalar copied to the host behind the work queued so far, to
+    be read later without waiting: on a CUDA device an asynchronous copy
+    into pinned memory behind a recorded event (.item() would wait for the
+    whole stream), on the CPU the value itself."""
+
+    def __init__(self, x: Tensor):
+        if x.device.type == "cuda":
+            self._host = torch.empty((), dtype=x.dtype, pin_memory=True)
+            self._host.copy_(x, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host, self._event = x.detach().clone(), None
+
+    def read(self) -> float:
+        """The value; waits only if the copy has not landed yet."""
+        if self._event is not None:
+            self._event.synchronize()
+        return float(self._host)
+
+
 class Renderer:
     """Owns the scene (on `device`), its packed tables (a forest's for K6 or
     a single tree's), the config and the temporal state, and drives frames.
+
+    With cfg.compact_auto, frames start at cfg.compact_frac; every
+    _TUNE_EVERY frames the Renderer reads the coverage copied a period
+    earlier and sets the budget of the frames after it to the smallest
+    bucket that holds the coverage with 30% headroom, or to no compaction
+    (tpuray/render/renderer.py:145-183). frame_cfg is the config the next
+    frame renders with.
 
     device defaults to "cuda"; without a CUDA device the Renderer raises
     unless it is given device="cpu". Cameras may be built anywhere: step()
     moves them to the Renderer's device, and chooses the static-camera
     branch from a host copy of the view matrix (a camera built on the host,
     as OrbitCamera.snapshot() does by default, costs no device read)."""
+
+    _BUCKETS = (0.125, 0.25, 0.5)
+    _HEADROOM = 1.3
+    _TUNE_EVERY = 8  # frames between coverage reads
 
     def __init__(self, scene, cfg: RenderConfig, device="cuda",
                  tracer: Tracer = KERNELS):
@@ -180,9 +217,31 @@ class Renderer:
         self.state = FrameState.initial(cfg.height, cfg.width, self.device)
         self._prev_view_proj = np.eye(4, dtype=np.float32)  # host copy
         self.last_outputs: FrameOutputs | None = None
+        self.frame_cfg = cfg
+        self._steps = 0
+        self._pending_cov: LaggedScalar | None = None
 
     def reset(self) -> None:
         self.state = self.state.reset_accumulation()
+
+    def restore(self, state: FrameState) -> None:
+        """Continue from a saved FrameState (utils/checkpoint.py)."""
+        self.state = state
+        self._prev_view_proj = state.prev_view_proj.detach().cpu().numpy()
+
+    def _tune_compaction(self, out: FrameOutputs) -> None:
+        """Every _TUNE_EVERY frames: set frame_cfg's bucket from the coverage
+        copied a period ago, and copy this frame's. A stale bucket costs
+        speed only: the residual pass keeps overflowing frames exact."""
+        self._steps += 1
+        if self._steps % self._TUNE_EVERY:
+            return
+        if self._pending_cov is not None:
+            want = self._pending_cov.read() * self._HEADROOM
+            bucket = next((b for b in self._BUCKETS if b >= want), 0.0)
+            if bucket != self.frame_cfg.compact_frac:
+                self.frame_cfg = dataclasses.replace(self.cfg, compact_frac=bucket)
+        self._pending_cov = LaggedScalar(out.coverage)
 
     @torch.no_grad()
     def step(self, camera: Camera) -> FrameOutputs:
@@ -192,11 +251,13 @@ class Renderer:
         static = bool(self.state.frame_idx > 0
                       and np.allclose(view_proj, self._prev_view_proj))
         self.state, out = render_frame(
-            self.scene, camera.to(self.device), self.state, self.cfg,
+            self.scene, camera.to(self.device), self.state, self.frame_cfg,
             self.cfg.height, self.cfg.width, tracer=self.tracer,
             tables=self.tables, pk=self.pk, static_camera=static)
         self._prev_view_proj = view_proj
         self.last_outputs = out
+        if self.cfg.compact_auto:
+            self._tune_compaction(out)
         return out
 
     def render(self, camera: Camera, n_frames: int = 1) -> FrameOutputs:

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from tpuray_torch.io.obj import write_obj
 from tpuray_torch.scene.host import (
     build_bvh_py, env_cache_py, material_table_arrays, procedural_room_envmap)
 from tpuray_torch.scene.partition import apply_perm_padded, build_forest_bvh_uniform
@@ -114,6 +115,24 @@ def make_test_scene_arrays(subdiv: int = 2, with_lights: bool = True,
     arrays["envmap.image"] = env_img
     arrays["envmap.cache"] = env_cache_py(env_img)
     return arrays
+
+
+def write_test_scene_obj(path: str, subdiv: int = 2) -> None:
+    """make_test_scene's geometry (an icosphere on a ground quad) as one OBJ
+    with shared vertices (smooth normals on load) and non-constant texture
+    coordinates: spherical on the sphere, planar on the ground."""
+    tris = np.concatenate([icosphere(subdiv), ground_quad()])
+    verts, faces = np.unique(tris.reshape(-1, 3), axis=0, return_inverse=True)
+    faces = faces.reshape(-1, 3)
+    p = tris.reshape(-1, 3).astype(np.float64)
+    on_sphere = np.repeat(np.arange(len(tris)) < len(tris) - 2, 3)
+    r = np.linalg.norm(p, axis=-1)
+    u = np.where(on_sphere, 0.5 + np.arctan2(p[:, 2], p[:, 0]) / (2 * np.pi),
+                 (p[:, 0] + 4.0) / 8.0)
+    v = np.where(on_sphere, 0.5 + np.arcsin(np.clip(p[:, 1] / np.maximum(r, 1e-9), -1, 1))
+                 / np.pi, (p[:, 2] + 4.0) / 8.0)
+    write_obj(path, verts, faces, np.stack([u, v], -1).astype(np.float32),
+              np.arange(len(p)).reshape(-1, 3))
 
 
 def make_test_scene(subdiv: int = 2, with_lights: bool = True,

@@ -123,15 +123,25 @@ class EnvMap(_Fields):
 
 
 @dataclasses.dataclass
+class TextureStack(_Fields):
+    """Per-object PBR texture stack: 4 layers per object (albedo, metallic,
+    normal, roughness)."""
+
+    data: Tensor  # (n_objects, 4, H, W, 3) f32 in [0, 1]
+
+    @property
+    def n_objects(self) -> int:
+        return self.data.shape[0]
+
+
+@dataclasses.dataclass
 class Scene(_Fields):
     triangles: TriangleSoA
     bvh: BVHSoA
     materials: MaterialTable
     lights: PointLights
     envmap: EnvMap
-    # per-object texture stack; always None until textures are ported
-    # (ROADMAP.md item 9)
-    textures: Optional[Tensor] = None
+    textures: Optional[TextureStack] = None
 
 
 @dataclasses.dataclass
@@ -185,11 +195,8 @@ def scene_from_numpy(arrays: dict[str, np.ndarray], device="cpu") -> Scene:
     """Build a torch Scene on `device` from `scene_to_numpy`-style arrays.
 
     A chunked forest's chunk_nodes / chunk_tris (0-d arrays, absent for a
-    single tree) become ints. Raises NotImplementedError for texture stacks
-    (ROADMAP.md item 9)."""
-    if "textures.data" in arrays:
-        raise NotImplementedError(
-            "scenes with textures are not ported yet (ROADMAP.md item 9)")
+    single tree) become ints; "textures.data", where present, becomes the
+    scene's TextureStack."""
     parts = {}
     for group, cls in _GROUPS.items():
         kw = {}
@@ -202,4 +209,7 @@ def scene_from_numpy(arrays: dict[str, np.ndarray], device="cpu") -> Scene:
             a = np.array(arrays[key], dtype=dt)  # a writable copy
             kw[f.name] = torch.from_numpy(a).to(device)
         parts[group] = cls(**kw)
+    if "textures.data" in arrays:
+        data = np.array(arrays["textures.data"], dtype=np.float32)
+        parts["textures"] = TextureStack(data=torch.from_numpy(data).to(device))
     return Scene(**parts)
