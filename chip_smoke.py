@@ -94,11 +94,32 @@ instructions in its SASS (cuobjdump -sass), then:
      Renderer turns compaction off after frame 16 (K2 2);
  17. `python -m tpuray_torch.cli.main render --frames 4 --size 800` as a
      subprocess (the default config on the procedural scene): it must exit
-     0 and write a finite 800x800 PNG.
+     0 and write a finite 800x800 PNG;
+ 18. the distribution layer on one NCCL rank (a process group of one from
+     a file store under build/; NCCL puts one rank on a card, so this is
+     the edge-replicating halo branch and collectives of one): 6 moving
+     800x800 frames of render_frame_sharded with the launch counts set to 0
+     just before and read just after (K1 1, K2 2 a frame, or 4 with the
+     residual pass; no K4 or K5: the sharded frame runs the plain denoise
+     stages), bit-equal to render_frame with the plain denoiser at
+     compact_frac 0 (final and history_len), within the image tolerance
+     at compact_frac 0.5; one sharded frame of the 20k file scene (a
+     forest: K6 6 a frame, 11 with the residual pass) against
+     render_frame; render_tiled at 800x800 bit-equal to trace_paths on the
+     same row-major rays (K1 1, K2 2), and K1 timed on those rays beside
+     the frame's tile-ordered ones; 2 sharded train steps at 800x800,
+     depth 2, against make_train_step's (losses within rtol 1e-5, the last
+     gradients within GRAD_ATOL of each field's largest, base_color within
+     DIST_PARAM_ATOL); run_elastic over 5 card frames with a CUDA fault
+     injected before frame 3, bit-equal to an uninterrupted run with one
+     restore; `render --elastic` through the CLI; then the wall median,
+     device ms and busy share of render_frame (K4, K5), render_frame with
+     the plain denoiser and render_frame_sharded (a world of one: render_frame's
+     plain stages on the row-major trace, no halo exchange), in one call.
 Any failed check raises (non-zero exit). The last lines are the kernels'
 JSON line (launches: the sum over every path run above, each run counted
-from 0 just before it; errors, times and bounds from phases 1-4, 8, 11 and
-13), the card's name and power limit, then {"ok": true, "device": {...}}.
+from 0 just before it, the sharded paths of phase 18 included; errors,
+times and bounds from phases 1-4, 8, 11 and 13), the card's name and power limit, then {"ok": true, "device": {...}}.
 Needs no network and no jax. Exits non-zero without a CUDA device.
 """
 import dataclasses
@@ -113,8 +134,13 @@ from pathlib import Path
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from tpuray_torch.denoise.svgf import svgf_pipeline
+from tpuray_torch.dist import multihost
+from tpuray_torch.dist.frame import render_frame_sharded, shard_state
+from tpuray_torch.dist.sharding import gather_rows, render_tiled
+from tpuray_torch.integrator.gather_tables import pack_scene_tables
 from tpuray_torch.integrator import path_tracer as pt
 from tpuray_torch.integrator.intersect import INF
 from tpuray_torch.kernels import atrous as ka
@@ -132,9 +158,10 @@ from tpuray_torch.train import optimize
 from tpuray_torch.denoise_times import (
     chain_times, fallback_shares, moving_renderer, step_increments)
 from tpuray_torch.io.image import read_png
-from tpuray_torch.profile_frames import FrameRun, file_scene
+from tpuray_torch.profile_frames import FrameRun, ShardedRun, file_scene
 from tpuray_torch.traversal_times import (
     k1_rays, k3_walks, k7_cases, kernel_ms, recorded_calls)
+from tpuray_torch.utils.elastic import run_elastic
 
 H = W = 800
 # slice 2: the default view (SVGF + TAA on) without compaction; phase 16 runs
@@ -159,6 +186,14 @@ SWITCH_FRAMES = 32  # phase 16's counted frames: the first bucket switch comes a
 PROFILE_FRAMES = 8  # phase 16's frames under torch.profiler, compaction on and off
 MAX_MISMATCH = 1e-4  # idx / hit-miss / validity may differ on <= 0.01%
 RTOL, ATOL = 1e-5, 1e-6  # K4 and K5 against their plain versions
+DIST_FRAMES = 6         # phase 18's moving sharded frames, each config
+DIST_COMPACT = 0.5      # the default budget, held fixed (the sharded frame has no tuner)
+DIST_TRAIN_STEPS = 2    # sharded train steps against make_train_step's
+DIST_PARAM_ATOL = 1e-4  # their base_color after the steps (an Adam step is ~1e-2)
+DIST_ELASTIC_FRAMES = 5  # run_elastic's frames, a fault injected before frame 3
+# the frames of the timing runs: a plain-denoiser frame issues ~19,000
+# kernels, which the profiler takes seconds a frame to digest
+DIST_TIMED_FRAMES, DIST_PROFILE_FRAMES = 8, 1
 
 # H100 SXM published peaks (NVIDIA's data sheet, 700 W): HBM bytes/s and
 # float32 operations/s outside the tensor cores
@@ -777,6 +812,249 @@ def phase_cli() -> None:
         raise AssertionError(f"the CLI wrote an image of shape {img.shape}")
 
 
+def dist_frames(scene, cfg, mesh, frames: int, **cam_kw):
+    """`frames` moving frames of render_frame_sharded (launch counts set to
+    0 just before and read just after) and the same frames of render_frame
+    -> (sharded finals, single finals, sharded launches, ms per sharded
+    frame, per-frame (single-device coverage), last states)."""
+    tables, pk = pt.pack_traversal(scene), pack_scene_tables(scene)
+    cam = OrbitCamera(width=W, height=H, **cam_kw)
+    state = shard_state(FrameState.initial(H, W), mesh)
+    finals, ms = [], []
+    torch.cuda.synchronize()
+    reset_launches()
+    with torch.no_grad():
+        for _ in range(frames):
+            cam.rotate(0.5, 0.0)
+            t0 = time.perf_counter()
+            state, final, _ = render_frame_sharded(scene, cam.snapshot(), state, cfg, H, W,
+                                                   mesh, tables=tables, pk=pk)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            finals.append(final)
+        run = launches()
+        cam = OrbitCamera(width=W, height=H, **cam_kw)
+        single = FrameState.initial(H, W, mesh.device)
+        outs = []
+        for _ in range(frames):
+            cam.rotate(0.5, 0.0)
+            single, out = render_frame(scene, cam.snapshot(mesh.device), single, cfg, H, W,
+                                       tables=tables, pk=pk)
+            outs.append(out)
+    return finals, outs, run, ms, (state, single)
+
+
+def frame_walk_launches(outs, cfg, forest: bool) -> dict:
+    """The traversal launches of render_frame_sharded's frames on a world of
+    one: each frame's budget against its hit count (the single-device
+    frame's coverage: the same rays, in another order)."""
+    want = dict(k1=0, k2=0, k3=0, k4=0, k5=0, k6=0, k7=0)
+    budget = pt._compact_budget(W * H, cfg)
+    for out in outs:
+        add_launches(want, _frame_walks(forest, 0 < budget < round(float(out.coverage) * W * H)))
+    return want
+
+
+def phase_dist(scene, dev) -> tuple[dict, float, float]:
+    """18. The distribution layer on one NCCL rank -> (the launches of its
+    paths, K1's ms on the sharded path's row-major rays, on the frame's
+    tile-ordered rays)."""
+    store = Path(__file__).resolve().parent / "build" / "dist_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    multihost.initialize(f"file://{store}", 1, 0, device="cuda")
+    try:
+        return _phase_dist(scene, dev, multihost.global_mesh())
+    finally:
+        multihost.shutdown()
+
+
+def _phase_dist(scene, dev, mesh) -> tuple[dict, float, float]:
+    total = dict(k1=0, k2=0, k3=0, k4=0, k5=0, k6=0, k7=0)
+    log(f"dist: rank {mesh.rank} of {mesh.size} on {mesh.device}, backend "
+        f"{dist.get_backend()} (NCCL puts one rank on a card)")
+
+    # the sharded frame: bit-equal to render_frame with the plain denoiser
+    # (the stages it runs) at compact_frac 0, close to it under compaction
+    for name, cfg in (("compact_frac 0", SLICE_PLAIN),
+                      (f"compact_frac {DIST_COMPACT}",
+                       dataclasses.replace(SLICE_PLAIN, compact_frac=DIST_COMPACT))):
+        finals, outs, run, ms, (st, single) = dist_frames(scene, cfg, mesh, DIST_FRAMES)
+        add_launches(total, run)
+        want = frame_walk_launches(outs, cfg, forest=False)
+        log(f"sharded frames, {name}: {DIST_FRAMES} moving at {W}x{H}, median "
+            f"{statistics.median(ms):.3f} ms, launches {run} (want {want})")
+        expect_launches(f"sharded frames, {name}", run, want)
+        for i, (a, out) in enumerate(zip(finals, outs)):
+            if cfg.compact_frac == 0.0:
+                if not (torch.equal(a, out.final) and torch.equal(st.history_len, single.history_len)):
+                    raise AssertionError(f"sharded frame {i} differs from render_frame: max "
+                                         f"{float((a - out.final).abs().max()):.3g}")
+            else:
+                assert_images_close(f"sharded frame {i}, {name}, vs render_frame", a, out.final)
+        if cfg.compact_frac == 0.0:
+            log(f"sharded frames, {name}: all {DIST_FRAMES} final images and the last "
+                f"history_len bit-equal to render_frame's")
+        check_image(outs[-1], svgf_on=True)
+
+    # the sharded frame on the 20k file scene: a forest, every walk K6
+    file20 = file_scene(5, device=dev)
+    cfg = dataclasses.replace(DEFAULT, compact_frac=DIST_COMPACT, compact_auto=False,
+                              pallas_denoise=False)
+    finals, outs, run, ms, _ = dist_frames(file20, cfg, mesh, 1)
+    add_launches(total, run)
+    want = frame_walk_launches(outs, cfg, forest=True)
+    log(f"sharded frame, file scene {file20.triangles.count} (a forest), compact_frac "
+        f"{DIST_COMPACT}: {ms[0]:.3f} ms, launches {run} (want {want})")
+    expect_launches("sharded forest frame", run, want)
+    assert_images_close("sharded forest frame vs render_frame", finals[0], outs[0].final)
+    del file20
+
+    # render_tiled against trace_paths on the same row-major rays
+    cam = OrbitCamera(width=W, height=H).snapshot(dev)
+    tables = pt.pack_traversal(scene)
+    reset_launches()
+    with torch.no_grad():
+        color, _, albedo = render_tiled(scene, cam, SLICE, mesh, H, W, frame=3, tables=tables)
+    run = launches()
+    add_launches(total, run)
+    expect_launches("render_tiled", run, dict(k1=1, k2=2, k3=0, k4=0, k5=0, k6=0, k7=0))
+    d = cam.ray_directions(H, W).reshape(-1, 3)
+    yy, xx = torch.meshgrid(torch.arange(H, device=dev), torch.arange(W, device=dev),
+                            indexing="ij")
+    with torch.no_grad():
+        ref = pt.trace_paths(scene, cam.eye[None], d, xx.reshape(-1), (H - 1 - yy).reshape(-1),
+                             3, SLICE, common_origin=True, tables=tables)
+    full = gather_rows(mesh, color, H)
+    if not (torch.equal(full, ref.color.reshape(H, W, 3))
+            and torch.equal(albedo, ref.albedo.reshape(H, W, 3))):
+        raise AssertionError("render_tiled differs from trace_paths")
+    log(f"render_tiled at {W}x{H}: bit-equal to trace_paths on the same rays, launches {run}")
+    # K1 on the sharded path's row-major primaries and on the frame's 32x32 tiles
+    orig, d_tiles, _, _ = camera_rays(cam, H, W)
+    k1_rows = kernel_ms(lambda: kt.trace_packets(tables, cam.eye[None], d, INF, common_origin=True))
+    k1_tiles = kernel_ms(lambda: kt.trace_packets(tables, orig, d_tiles, INF, common_origin=True))
+    log(f"K1 on the {d.shape[0]} primaries: row-major (the sharded paths) {k1_rows:.4f} ms, "
+        f"32x32 tiles (the frame) {k1_tiles:.4f} ms")
+
+    # the sharded train step against make_train_step: 2 steps each
+    tcfg = RenderConfig(width=W, height=H, max_tracing_depth=2, compact_frac=0.0,
+                        compact_auto=False)
+    res = {}
+    for sharded in (False, True):
+        params, rebuild = optimize.split_trainable(scene, device=dev)
+        with torch.no_grad():
+            target = optimize.render_flat(rebuild(params), cam, tcfg, H, W, 0)
+            params["materials"].base_color.mul_(0.4).add_(0.3)
+        opt = (lambda p: lambda _: torch.optim.Adam([p["materials"].base_color], lr=1e-2))(params)
+        init, step = (optimize.make_sharded_train_step(rebuild, tcfg, H, W, mesh, opt)
+                      if sharded else optimize.make_train_step(rebuild, tcfg, H, W, opt))
+        state = init(params)
+        losses, step_ms = [], []
+        reset_launches()
+        for _ in range(DIST_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, loss = step(state, target, cam, 0)
+            losses.append(float(loss))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        run = launches()
+        if sharded:
+            add_launches(total, run)
+            expect_launches("sharded train steps", run, dict(
+                k1=DIST_TRAIN_STEPS, k2=2 * DIST_TRAIN_STEPS, k3=0, k4=0, k5=0, k6=0, k7=0))
+        table = state.params["materials"]
+        res[sharded] = (losses, step_ms,
+                        {f.name: getattr(table, f.name).detach() for f in dataclasses.fields(table)},
+                        {f.name: getattr(table, f.name).grad for f in dataclasses.fields(table)})
+    (l0, ms0, p0, g0), (l1, ms1, p1, g1) = res[False], res[True]
+    worst = max(float((p1[k] - p0[k]).abs().max()) for k in p0)
+    g_err = max(float((g1[k] - g0[k]).abs().max()) / max(float(g0[k].abs().max()), 1e-30)
+                for k in g0)
+    log(f"sharded train steps: {DIST_TRAIN_STEPS} at {W}x{H}, depth 2, Adam lr 1e-2 on "
+        f"base_color: losses {l1} vs make_train_step {l0}; step ms {[round(x, 3) for x in ms1]} "
+        f"vs {[round(x, 3) for x in ms0]}; last step's gradients max |diff| / max |g| per field "
+        f"{g_err:.3g}; parameters max |diff| {worst:.3g} (atol {DIST_PARAM_ATOL})")
+    if (any(abs(a - b) > 1e-5 * abs(b) for a, b in zip(l1, l0)) or worst > DIST_PARAM_ATOL
+            or g_err > GRAD_ATOL):
+        raise AssertionError("the sharded train step differs from make_train_step")
+
+    phase_elastic(scene, dev)
+    phase_cli_elastic()
+
+    # wall, device ms and busy share: the sharded frame beside render_frame's
+    runs = [FrameRun(scene, SLICE, "render_frame (K4, K5)"),
+            FrameRun(scene, SLICE_PLAIN, "render_frame (plain denoiser)"),
+            ShardedRun(scene, SLICE_PLAIN, "render_frame_sharded (world of one)", mesh)]
+    walls = [r.time_frames(DIST_TIMED_FRAMES) for r in runs]
+    prof = [r.profile_frames(DIST_PROFILE_FRAMES, wall, Path("build/profile"))
+            for r, wall in zip(runs, walls)]
+    log("frames at 800x800, the default view (compact_frac 0): " + "; ".join(
+        f"{r.tag}: wall median {p['wall_ms']:.3f} ms (min {min(w):.3f}, max {max(w):.3f}), "
+        f"device {p['device_ms_per_frame']:.3f} ms, {p['kernels_per_frame']:.1f} kernels, "
+        f"busy share {p['busy_share']:.3f}" for r, w, p in zip(runs, walls, prof)))
+    return total, k1_rows, k1_tiles
+
+
+def phase_elastic(scene, dev) -> None:
+    """18, elastic: run_elastic over DIST_ELASTIC_FRAMES card frames with one
+    injected CUDA fault against an uninterrupted run."""
+    cam = OrbitCamera(width=W, height=H)
+    tables, pk = pt.pack_traversal(scene), pack_scene_tables(scene)
+
+    @torch.no_grad()
+    def frame_fn(state, frame):
+        cam.yaw_deg = 0.5 * frame
+        return render_frame(scene, cam.snapshot(dev), state, SLICE, H, W, tables=tables,
+                            pk=pk)[0]
+
+    armed = {DIST_ELASTIC_FRAMES // 2 + 1}
+
+    def flaky(state, frame):
+        if frame in armed:
+            armed.discard(frame)
+            raise RuntimeError("CUDA error: an illegal memory access was encountered "
+                               "(injected)")
+        return frame_fn(state, frame)
+
+    ck = Path(__file__).resolve().parent / "build"
+    s0 = FrameState.initial(H, W, dev)
+    t0 = time.perf_counter()
+    ref, _ = run_elastic(frame_fn, s0, DIST_ELASTIC_FRAMES, str(ck / "elastic_ref.npz"),
+                         checkpoint_every=2)
+    t1 = time.perf_counter()
+    got, stats = run_elastic(flaky, s0, DIST_ELASTIC_FRAMES, str(ck / "elastic.npz"),
+                             checkpoint_every=2)
+    t2 = time.perf_counter()
+    same = all(torch.equal(getattr(got, f), getattr(ref, f))
+               for f in ("illum_hist", "variance_hist", "prev_normal", "prev_linear_z",
+                         "moments", "history_len", "accum_color", "taa_color"))
+    log(f"elastic: {DIST_ELASTIC_FRAMES} frames at {W}x{H}, a fault injected before frame "
+        f"{DIST_ELASTIC_FRAMES // 2 + 1}: {stats.faults} faults, {stats.restores} restores, "
+        f"{stats.replayed_frames} replayed, {stats.checkpoints} checkpoints; "
+        f"{(t2 - t1) * 1e3:.0f} ms against {(t1 - t0) * 1e3:.0f} ms uninterrupted; final "
+        f"state bit-equal: {same}")
+    if not same or stats.restores != 1 or got.frame_idx != DIST_ELASTIC_FRAMES:
+        raise AssertionError("the elastic run did not resume bit for bit")
+
+
+def phase_cli_elastic() -> None:
+    """18, the CLI's supervised render on the card, as a user runs it."""
+    root = Path(__file__).resolve().parent
+    png, ck = root / "build" / "cli_elastic.png", root / "build" / "cli_elastic.npz"
+    png.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "tpuray_torch.cli.main", "render", "--elastic", str(ck),
+           "--checkpoint-every", "2", "--frames", "4", "--size", "800", "--out", str(png)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+    log(f"cli: {' '.join(cmd[1:])} -> exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s; stderr: {proc.stderr.strip()[-600:]}")
+    if proc.returncode != 0 or "elastic: 4 frames" not in proc.stderr:
+        raise AssertionError(f"the CLI's elastic render exited {proc.returncode}")
+    img = read_png(str(png))
+    if img.shape != (H, W, 3) or not bool((img > 0).any()):
+        raise AssertionError(f"the CLI wrote an image of shape {img.shape}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1153,6 +1431,10 @@ def main() -> None:
 
     # ---- 17. the CLI
     phase_cli()
+
+    # ---- 18. distribution on one NCCL rank, the elastic loop
+    run, k1_rows_ms, k1_tiles_ms = phase_dist(scene, dev)
+    add_launches(path_launches, run)
 
     def entry(name, source, replaces, key, err, ms, plain_ms, b, library_ms=None):
         return dict(name=name, route="cuda", source=source, replaces=replaces,

@@ -700,3 +700,125 @@ def test_lagged_coverage_copy(cuda_scene):
     x = torch.rand((), device="cuda")
     lag = LaggedScalar(x)
     assert lag.read() == float(x.cpu())
+
+
+# ---- distribution: one NCCL rank on the card (NCCL puts one rank on a card)
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(cuda_scene, tmp_path_factory):
+    """A process group of one NCCL rank (a file store), left at the end."""
+    from tpuray_torch.dist import multihost
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    assert multihost.initialize(f"file://{store}", 1, 0, device="cuda") is False
+    yield multihost.global_mesh()
+    multihost.shutdown()
+
+
+def test_nccl_render_tiled_matches_trace_paths(cuda_scene, nccl_mesh):
+    """render_tiled on one NCCL rank equals the single-device row-major
+    trace bit for bit; K1 once, K2 twice (depth 2)."""
+    from tpuray_torch.dist.sharding import gather_rows, render_tiled
+    from tpuray_torch.integrator.path_tracer import trace_paths
+    scene, _ = cuda_scene
+    n = 128
+    cfg = RenderConfig(width=n, height=n, compact_frac=0.0, compact_auto=False)
+    cam = OrbitCamera(width=n, height=n).snapshot("cuda")
+    kt.reset_launches()
+    color, _, albedo = render_tiled(scene, cam, cfg, nccl_mesh, n, n, frame=3)
+    assert kt.LAUNCHES == {"k1": 1, "k2": 2, "k3": 0}
+    yy, xx = torch.meshgrid(torch.arange(n, device="cuda"), torch.arange(n, device="cuda"),
+                            indexing="ij")
+    ref = trace_paths(scene, cam.eye[None], cam.ray_directions(n, n).reshape(-1, 3),
+                      xx.reshape(-1), (n - 1 - yy).reshape(-1), 3, cfg, common_origin=True)
+    assert torch.equal(gather_rows(nccl_mesh, color, n), ref.color.reshape(n, n, 3))
+    assert torch.equal(albedo, ref.albedo.reshape(n, n, 3))
+
+
+def test_nccl_sharded_frames_match_render_frame(cuda_scene, nccl_mesh):
+    """Three moving frames and a still one of render_frame_sharded on one
+    NCCL rank equal render_frame with the plain denoiser bit for bit (K1 1
+    and K2 2 a frame, no K4 or K5)."""
+    from tpuray_torch.dist.frame import render_frame_sharded, shard_state
+    from tpuray_torch.render.frame_state import FrameState
+    from tpuray_torch.render.renderer import render_frame
+    scene, _ = cuda_scene
+    n = 128
+    cfg = RenderConfig(width=n, height=n, compact_frac=0.0, compact_auto=False,
+                       pallas_denoise=False)
+    tables = pack_traversal(scene)
+    cam = OrbitCamera(width=n, height=n)
+    s1 = FrameState.initial(n, n, "cuda")
+    s2 = shard_state(FrameState.initial(n, n), nccl_mesh)
+    for rot, still in ((0.5, False), (0.5, False), (0.5, False), (0.0, True)):
+        cam.rotate(rot, 0.0)
+        snap = cam.snapshot("cuda")
+        with torch.no_grad():
+            s1, out = render_frame(scene, snap, s1, cfg, n, n, tables=tables,
+                                   static_camera=still)
+            kt.reset_launches()
+            ka.reset_launches()
+            kr.reset_launches()
+            s2, final, pt_color = render_frame_sharded(scene, snap, s2, cfg, n, n, nccl_mesh,
+                                                       static_camera=still, tables=tables)
+        assert {**kt.LAUNCHES, **ka.LAUNCHES, **kr.LAUNCHES} == dict(k1=1, k2=2, k3=0,
+                                                                      k4=0, k5=0)
+        assert torch.equal(final, out.final) and torch.equal(pt_color, out.pt_color)
+        assert torch.equal(s2.history_len, s1.history_len)
+
+
+def test_nccl_sharded_train_step_matches_single(cuda_scene, nccl_mesh):
+    """One SGD step of make_sharded_train_step on one NCCL rank (its
+    all-reduce a collective of one): the loss and every gradient within
+    1e-5 of make_train_step's (largest |gradient| per field)."""
+    scene, _ = cuda_scene
+    n = 64
+    cfg = RenderConfig(width=n, height=n, compact_frac=0.0, compact_auto=False)
+    cam = OrbitCamera(width=n, height=n, yaw_deg=20.0).snapshot("cuda")
+    target = torch.full((n, n, 3), 0.3, device="cuda")
+    out = []
+    for sharded in (False, True):
+        params, rebuild = optimize.split_trainable(scene, device="cuda")
+        opt = lambda p: torch.optim.SGD(p, lr=0.1)  # noqa: E731
+        init, step = (optimize.make_sharded_train_step(rebuild, cfg, n, n, nccl_mesh, opt)
+                      if sharded else optimize.make_train_step(rebuild, cfg, n, n, opt))
+        state, loss = step(init(params), target, cam, 0)
+        out.append((loss, {f"{g}.{f.name}": getattr(t, f.name).grad
+                           for g, t in state.params.items() for f in dataclasses.fields(t)}))
+    torch.testing.assert_close(out[1][0], out[0][0], rtol=1e-6, atol=0)
+    for name, ref in out[0][1].items():
+        torch.testing.assert_close(out[1][1][name], ref, rtol=0,
+                                   atol=1e-5 * float(ref.abs().max()) + 1e-12, msg=name)
+
+
+def test_elastic_resume_on_the_card(cuda_scene, tmp_path):
+    """run_elastic over card frames with an injected CUDA fault resumes
+    bit for bit equal to an uninterrupted run."""
+    from tpuray_torch.render.frame_state import FrameState
+    from tpuray_torch.render.renderer import render_frame
+    from tpuray_torch.utils.elastic import run_elastic
+    scene, _ = cuda_scene
+    n = 64
+    cfg = RenderConfig(width=n, height=n, compact_frac=0.0, compact_auto=False)
+    cam = OrbitCamera(width=n, height=n)
+
+    @torch.no_grad()
+    def frame_fn(state, frame):
+        cam.yaw_deg = 0.5 * frame
+        return render_frame(scene, cam.snapshot("cuda"), state, cfg, n, n)[0]
+
+    armed = {3}
+
+    def flaky(state, frame):
+        if frame in armed:
+            armed.discard(frame)
+            raise RuntimeError("CUDA error: an illegal memory access was encountered")
+        return frame_fn(state, frame)
+
+    s0 = FrameState.initial(n, n, "cuda")
+    ref, _ = run_elastic(frame_fn, s0, 5, str(tmp_path / "a.npz"), checkpoint_every=2)
+    got, stats = run_elastic(flaky, s0, 5, str(tmp_path / "b.npz"), checkpoint_every=2)
+    assert (stats.faults, stats.restores) == (1, 1)
+    assert got.taa_color.device.type == "cuda"
+    for f in ("taa_color", "illum_hist", "history_len", "moments", "accum_color"):
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f

@@ -50,6 +50,7 @@ from tpuray.scene.procedural import make_large_scene, make_test_scene
 from tpuray.train import optimize as jopt
 
 import tpuray_torch
+from tpuray_torch.dist.sharding import make_mesh
 from tpuray_torch.integrator import disney, gather_tables, path_tracer
 from tpuray_torch.integrator.gather_tables import pack_scene_tables
 from tpuray_torch.kernels import atrous as ka
@@ -403,5 +404,11 @@ def test_split_trainable(scenes, monkeypatch):
     s = rebuild(params)
     assert s.materials is params["materials"] and s.lights is not None
     assert not ts.materials.base_color.requires_grad  # the input is untouched
-    with pytest.raises(NotImplementedError, match="item 14"):
-        optimize.make_sharded_train_step(rebuild, RenderConfig(**BASE), H, W, None)
+    # the row-parallel step is ported (tests/test_torch_dist.py); it needs a
+    # mesh whose world size divides the height
+    init, step = optimize.make_sharded_train_step(rebuild, RenderConfig(**BASE), H, W,
+                                                  make_mesh("cpu"))
+    assert callable(init) and callable(step)
+    with pytest.raises(ValueError, match="multiple"):
+        optimize.make_sharded_train_step(rebuild, RenderConfig(**BASE), H + 1, W,
+                                         dataclasses.replace(make_mesh("cpu"), size=2))

@@ -16,11 +16,16 @@ compaction with its budget buckets) of a moving camera on the card
 single BVH or a chunked forest, with textures and normal maps, with the
 NEE integrator (fused or separate walks) or the MIS integrator. Scenes
 load from OBJ, HDR and image files (scene.builder.build_scene, io/), and
-`python -m tpuray_torch.cli.main render` renders one to PNG; see
-ROADMAP.md for what raises NotImplementedError until later slices. A frame
-differentiates with respect to materials and lights (render_frame,
-train.optimize; the traversal is topology only), and train.optimize holds
-the recovery step.
+`python -m tpuray_torch.cli.main render` renders one to PNG (with
+`--elastic`, under the supervised loop of utils/elastic.py that restores
+and replays after a device fault); see ROADMAP.md for what raises
+NotImplementedError until later slices. A frame differentiates with
+respect to materials and lights (render_frame, train.optimize; the
+traversal is topology only), and train.optimize holds the recovery step.
+dist/ splits a frame and a train step by image rows across processes
+under torch.distributed (NCCL on the card, gloo on the CPU): render_tiled,
+render_frame_sharded with halo exchanges, make_sharded_train_step, and
+multihost / dryrun to start the ranks.
 """
 
 __version__ = "0.1.0"

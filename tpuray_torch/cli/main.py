@@ -1,16 +1,18 @@
 """Command-line entry point (counterpart of tpuray/cli/main.py).
 
 Headless progressive rendering to PNG with debug-view selection and
-FrameState checkpoints, and an orbiting-camera PNG sequence, on the CUDA
-card by default (--device cpu renders on the CPU).
+FrameState checkpoints, a supervised render loop that restores and replays
+after a device fault (--elastic), and an orbiting-camera PNG sequence, on
+the CUDA card by default (--device cpu renders on the CPU).
 
 Examples:
   python -m tpuray_torch.cli.main render --frames 8 --out out.png
   python -m tpuray_torch.cli.main render --scene reference --asset-root DIR
+  python -m tpuray_torch.cli.main render --elastic ck.npz --checkpoint-every 4
   python -m tpuray_torch.cli.main animate --frames 24 --every 4
 
-`train`, `view`, `bench` and `render --elastic` raise NotImplementedError
-naming their ROADMAP.md item.
+`train`, `view` and `bench` raise NotImplementedError naming their
+ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -64,9 +66,6 @@ def cmd_render(args) -> int:
     from tpuray_torch.scene.config import DebugView
     from tpuray_torch.utils.metrics import FrameMetrics
 
-    if args.elastic:
-        raise NotImplementedError(
-            "render --elastic (utils/elastic.py) is ROADMAP.md item 15")
     cfg = _config(args, max_tracing_depth=args.depth,
                   reference_quirks=args.reference_quirks)
     scene = _build_scene(args.scene, args.reference_quirks)
@@ -78,8 +77,11 @@ def cmd_render(args) -> int:
         r.restore(load_frame_state(args.resume, r.device))
 
     metrics = FrameMetrics(cfg.width, cfg.height, cfg.max_tracing_depth)
-    for _ in range(args.frames):
-        _frame(r, cam.snapshot(), metrics)
+    if args.elastic:
+        _render_elastic(r, cam.snapshot(), args, metrics)
+    else:
+        for _ in range(args.frames):
+            _frame(r, cam.snapshot(), metrics)
     print(metrics.summary(), file=sys.stderr)
 
     write_png(args.out, r.display_image(DebugView[_VIEWS[args.view]]))
@@ -94,6 +96,46 @@ def cmd_render(args) -> int:
         for name, enum_name in _VIEWS.items():
             write_png(f"{base}_{name}.png", r.display_image(DebugView[enum_name]))
     return 0
+
+
+def _render_elastic(r, snap, args, metrics) -> None:
+    """The supervised loop (utils/elastic.py): a device fault restores the
+    newest checkpoint and replays. Each frame is a function of the state
+    and the camera: the config as given (no compaction tuning between
+    frames) and the static-camera branch from the state's view matrix, so a
+    resumed run is bit for bit an uninterrupted one. Each frame index is
+    recorded once, however often it is replayed."""
+    import numpy as np
+    import torch
+
+    from tpuray_torch.render.renderer import render_frame
+    from tpuray_torch.utils.elastic import run_elastic
+
+    view_proj = snap.view_proj.numpy()
+    camera = snap.to(r.device)
+    seen = set()
+
+    @torch.no_grad()
+    def frame_fn(state, frame):
+        t0 = time.perf_counter()
+        static = bool(state.frame_idx > 0 and np.allclose(
+            view_proj, state.prev_view_proj.cpu().numpy()))
+        state, out = render_frame(r.scene, camera, state, r.cfg, r.cfg.height,
+                                  r.cfg.width, tracer=r.tracer, tables=r.tables,
+                                  pk=r.pk, static_camera=static)
+        out.final[:1, :1].cpu()  # the frame's end, as _frame times it
+        r.last_outputs = out
+        if frame not in seen:
+            seen.add(frame)
+            metrics.record(time.perf_counter() - t0)
+        return state
+
+    state, stats = run_elastic(frame_fn, r.state, args.frames, args.elastic,
+                               checkpoint_every=args.checkpoint_every)
+    r.restore(state)
+    print(f"elastic: {stats.frames_done} frames, {stats.faults} faults, "
+          f"{stats.restores} restores, {stats.checkpoints} checkpoints",
+          file=sys.stderr)
 
 
 def cmd_animate(args) -> int:
@@ -152,7 +194,7 @@ def main(argv=None) -> int:
     pr.add_argument("--checkpoint", default=None, help="save FrameState npz")
     pr.add_argument("--resume", default=None, help="load FrameState npz")
     pr.add_argument("--elastic", default=None, metavar="CKPT",
-                    help="supervised loop with restore and replay (not ported)")
+                    help="supervised loop: restore and replay after a device fault")
     pr.add_argument("--checkpoint-every", type=int, default=8)
     pr.add_argument("--reference-quirks", action="store_true")
     pr.add_argument("--dump-all-views", action="store_true")

@@ -35,9 +35,13 @@ def blur_variance_3x3(variance: Tensor, reference_quirks: bool) -> Tensor:
 
 def atrous_iteration(illum: Tensor, variance: Tensor, normal: Tensor,
                      linear_z: Tensor, fwidth_z: Tensor, step: int,
-                     cfg: RenderConfig) -> tuple[Tensor, Tensor]:
+                     cfg: RenderConfig, row_window: tuple[int, int] | None = None
+                     ) -> tuple[Tensor, Tensor]:
     """One wavelet iteration at dilation `step` (1 << i) ->
-    (filtered illum (H, W, 3), filtered variance (H, W))."""
+    (filtered illum (H, W, 3), filtered variance (H, W)).
+
+    row_window=(row0, global_h): the inputs are a halo-extended row shard;
+    the bounds masks use global rows (dist/frame.py)."""
     shape = illum.shape[:2]
     dev = illum.device
     sky = linear_z == 1.0
@@ -63,7 +67,7 @@ def atrous_iteration(illum: Tensor, variance: Tensor, normal: Tensor,
                 linear_z, shift2d(linear_z, dy, dx), phi_depth * dist,
                 normal, shift2d(normal, dy, dx), cfg.sigma_n,
                 l_center, luminance(il_p), phi_l)
-            wgt = torch.where(inside_mask(shape, dy, dx, dev), wgt * kernel, 0.0)
+            wgt = torch.where(inside_mask(shape, dy, dx, dev, row_window), wgt * kernel, 0.0)
             sum_w = sum_w + wgt
             sum_illum = sum_illum + wgt[..., None] * il_p
             sum_var = sum_var + wgt * wgt * var_p

@@ -37,12 +37,18 @@ def shift2d(img: Tensor, dy: int, dx: int) -> Tensor:
 
 
 def inside_mask(shape: tuple[int, int], dy: int, dx: int,
-                device=None) -> Tensor:
-    """True where pixel (y + dy, x + dx) lies inside the image."""
+                device=None, row_window: tuple[int, int] | None = None) -> Tensor:
+    """True where pixel (y + dy, x + dx) lies inside the image.
+
+    row_window=(row0, global_h): the array is a row shard (plus halo) of a
+    taller image; local row i is global row row0 + i and the vertical
+    bounds test uses global_h, so a halo-extended shard computes the
+    single-device mask (dist/frame.py)."""
     h, w = shape
-    ys = torch.arange(h, device=device) + dy
+    row0, gh = row_window if row_window is not None else (0, h)
+    ys = torch.arange(h, device=device) + (row0 + dy)
     xs = torch.arange(w, device=device) + dx
-    return ((ys >= 0) & (ys < h))[:, None] & ((xs >= 0) & (xs < w))[None, :]
+    return ((ys >= 0) & (ys < gh))[:, None] & ((xs >= 0) & (xs < w))[None, :]
 
 
 def pow_weight(x: Tensor, sigma: float) -> Tensor:

@@ -101,24 +101,33 @@ def reproject(color: Tensor, emission: Tensor, albedo: Tensor,
               prev_illum: Tensor, prev_variance: Tensor,
               prev_normal: Tensor, prev_linear_z: Tensor,
               prev_moments: Tensor, prev_history_len: Tensor,
-              cfg: RenderConfig, static_camera: bool = False
-              ) -> ReprojectOutput:
+              cfg: RenderConfig, static_camera: bool = False,
+              row_window: tuple[int, int] | None = None) -> ReprojectOutput:
+    """row_window=(row0, global_h): the inputs are a halo-extended row shard
+    of a taller image (dist/frame.py). The pixel and uv arithmetic runs in
+    global rows, and a tap's local row is its global row - row0. A pixel
+    whose taps reach rows outside the shard fails its reprojection (the
+    response to a disocclusion), so wherever every tap lies inside, the
+    shard computes the single-device result."""
     if static_camera:
         return _reproject_static(
             color, emission, albedo, normal, linear_z, fwidth_normal,
             fwidth_z, prev_illum, prev_variance, prev_normal, prev_linear_z,
-            prev_moments, prev_history_len, cfg)
+            prev_moments, prev_history_len, cfg, row_window)
     gather_mode(cfg)
-    h, w = color.shape[:2]
+    lh, w = color.shape[:2]  # local rows
+    row0, h = row_window if row_window is not None else (0, lh)
     dev = color.device
-    yy, xx = torch.meshgrid(torch.arange(h, device=dev),
+    yy, xx = torch.meshgrid(torch.arange(lh, device=dev) + row0,
                             torch.arange(w, device=dev), indexing="ij")
     sky = linear_z == 1.0
     hist_rows = _history_rows(prev_illum, prev_variance, prev_normal,
                               prev_linear_z, prev_moments, prev_history_len)
 
-    def fetch(y, x):  # y, x already inside the image
-        return hist_rows[(y * w + x).reshape(-1)].reshape(h, w, -1)
+    def fetch(y, x):  # y, x inside the image, y a global row
+        if row_window is not None:
+            y = torch.clamp(y - row0, 0, lh - 1)
+        return hist_rows[(y * w + x).reshape(-1)].reshape(lh, w, -1)
 
     illum = demodulate(color, emission, albedo)
 
@@ -152,10 +161,10 @@ def reproject(color: Tensor, emission: Tensor, albedo: Tensor,
     weights = [(1 - frac_x) * (1 - frac_y), frac_x * (1 - frac_y),
                (1 - frac_x) * frac_y, frac_x * frac_y]
 
-    sum_w = torch.zeros((h, w), dtype=torch.float32, device=dev)
-    acc_illum = torch.zeros((h, w, 4), dtype=torch.float32, device=dev)
-    acc_mom = torch.zeros((h, w, 2), dtype=torch.float32, device=dev)
-    any_valid = torch.zeros((h, w), dtype=torch.bool, device=dev)
+    sum_w = torch.zeros((lh, w), dtype=torch.float32, device=dev)
+    acc_illum = torch.zeros((lh, w, 4), dtype=torch.float32, device=dev)
+    acc_mom = torch.zeros((lh, w, 2), dtype=torch.float32, device=dev)
+    any_valid = torch.zeros((lh, w), dtype=torch.bool, device=dev)
     for (dx, dy), wt, tap in zip(_QUAD, weights, taps):
         v = _tap_valid(y0i + dy, x0i + dx, h, w, linear_z, fwidth_z,
                        normal, fwidth_normal, tap, cfg)
@@ -166,15 +175,22 @@ def reproject(color: Tensor, emission: Tensor, albedo: Tensor,
         acc_mom = acc_mom + wv[..., None] * tap[..., _M]
 
     bilinear_ok = any_valid & (sum_w >= 0.01)
+    if row_window is not None:
+        # the rows of every tap below: the bilinear quad and the rescue quads
+        lo = torch.minimum(yc, torch.clamp(y0i - 1, 0, h - 2))
+        hi = torch.maximum(torch.clamp_max(yc + 1, h - 1),
+                           torch.clamp(y0i + 1, 0, h - 2) + 1)
+        in_shard = (lo >= row0) & (hi < row0 + lh)
+        bilinear_ok = bilinear_ok & in_shard
     safe_w = torch.clamp_min(sum_w, 1e-6)
     prev_i = torch.where(bilinear_ok[..., None], acc_illum / safe_w[..., None], 0.0)
     prev_mo = torch.where(bilinear_ok[..., None], acc_mom / safe_w[..., None], 0.0)
 
     # 3x3 cross-bilateral rescue (svgf_reproject.frag:111-141) from 4 quads
     # tiling the 4x4 neighbourhood, bases clamped to [0, dim - 2]
-    n_valid = torch.zeros((h, w), dtype=torch.float32, device=dev)
-    r_illum = torch.zeros((h, w, 4), dtype=torch.float32, device=dev)
-    r_mom = torch.zeros((h, w, 2), dtype=torch.float32, device=dev)
+    n_valid = torch.zeros((lh, w), dtype=torch.float32, device=dev)
+    r_illum = torch.zeros((lh, w, 4), dtype=torch.float32, device=dev)
+    r_mom = torch.zeros((lh, w, 2), dtype=torch.float32, device=dev)
     for base_dy, base_dx in ((-1, -1), (-1, 1), (1, -1), (1, 1)):
         yb = torch.clamp(y0i + base_dy, 0, h - 2)
         xb = torch.clamp(x0i + base_dx, 0, w - 2)
@@ -193,6 +209,8 @@ def reproject(color: Tensor, emission: Tensor, albedo: Tensor,
             r_illum = r_illum + vf[..., None] * tap[..., _IV]
             r_mom = r_mom + vf[..., None] * tap[..., _M]
     rescue_ok = (~bilinear_ok) & (n_valid > 0)
+    if row_window is not None:
+        rescue_ok = rescue_ok & in_shard
     safe_n = torch.clamp_min(n_valid, 1.0)
     prev_i = torch.where(rescue_ok[..., None], r_illum / safe_n[..., None], prev_i)
     prev_mo = torch.where(rescue_ok[..., None], r_mom / safe_n[..., None], prev_mo)
@@ -236,10 +254,13 @@ def _finish(color, illum, prev_i, prev_mo, success, hist_prev, sky,
 def _reproject_static(color, emission, albedo, normal, linear_z,
                       fwidth_normal, fwidth_z, prev_illum, prev_variance,
                       prev_normal, prev_linear_z, prev_moments,
-                      prev_history_len, cfg) -> ReprojectOutput:
+                      prev_history_len, cfg,
+                      row_window: tuple[int, int] | None = None
+                      ) -> ReprojectOutput:
     """Static camera (motion == 0): the bilinear taps collapse to the same
     pixel and the 3x3 rescue reads static shifts. The JAX package's
-    static specialisation, semantically the general path at motion 0."""
+    static specialisation, semantically the general path at motion 0.
+    row_window: the rescue's bounds masks use global rows."""
     h, w = color.shape[:2]
     dev = color.device
     sky = linear_z == 1.0
@@ -264,7 +285,7 @@ def _reproject_static(color, emission, albedo, normal, linear_z,
         for dx in (-1, 0, 1):
             v = tap_valid(shift2d(prev_linear_z, dy, dx),
                           shift2d(prev_normal, dy, dx)) \
-                & inside_mask((h, w), dy, dx, dev)
+                & inside_mask((h, w), dy, dx, dev, row_window)
             vf = v.to(torch.float32)
             n_valid = n_valid + vf
             r_illum = r_illum + vf[..., None] * shift2d(prev_iv, dy, dx)

@@ -77,11 +77,19 @@ def clip_aabb(mu: Tensor, sigma: Tensor, prev_ycc: Tensor,
     return torch.where(ma > 1.0, clipped, prev_ycc)
 
 
-def bilinear_fetch_clamped(img: Tensor, u: Tensor, v: Tensor) -> Tensor:
+def bilinear_fetch_clamped(img: Tensor, u: Tensor, v: Tensor,
+                           row_window: tuple[int, int] | None = None
+                           ) -> tuple[Tensor, Tensor | None]:
     """Bilinear read of (H, W, C) at uv in [0, 1]: the base texel clamps to
     the image and its right/down neighbours clamp at the last column/row,
-    the weights are those of the unclamped position."""
-    h, w = img.shape[0], img.shape[1]
+    the weights are those of the unclamped position -> (value, in_shard).
+
+    row_window=(row0, global_h): img is a halo-extended row shard of a
+    taller image and v is global; the rows are taken in the global image
+    and read at global row - row0. in_shard is False where a tap row lies
+    outside the shard (None without a row window)."""
+    lh, w = img.shape[0], img.shape[1]
+    row0, h = row_window if row_window is not None else (0, lh)
     x = u * w - 0.5
     y = v * h - 0.5
     x0 = torch.floor(x)
@@ -92,21 +100,33 @@ def bilinear_fetch_clamped(img: Tensor, u: Tensor, v: Tensor) -> Tensor:
     y0i = torch.clamp(y0.to(torch.int64), 0, h - 1)
     x1i = torch.clamp_max(x0i + 1, w - 1)
     y1i = torch.clamp_max(y0i + 1, h - 1)
-    flat = img.reshape(h * w, -1)
+    in_shard = None
+    if row_window is not None:
+        y0i, y1i = y0i - row0, y1i - row0
+        in_shard = (y0i >= 0) & (y1i < lh)
+        y0i, y1i = torch.clamp(y0i, 0, lh - 1), torch.clamp(y1i, 0, lh - 1)
+    flat = img.reshape(lh * w, -1)
 
     def at(yi, xi):
         return flat[(yi * w + xi).reshape(-1)].reshape(*yi.shape, -1)
 
     c00, c10, c01, c11 = at(y0i, x0i), at(y0i, x1i), at(y1i, x0i), at(y1i, x1i)
     return (c00 * (1 - fx) + c10 * fx) * (1 - fy) \
-        + (c01 * (1 - fx) + c11 * fx) * fy
+        + (c01 * (1 - fx) + c11 * fx) * fy, in_shard
 
 
 def taa(cur_color: Tensor, prev_color: Tensor, velocity: Tensor,
-        linear_z: Tensor, frame: int, static_camera: bool = False) -> Tensor:
+        linear_z: Tensor, frame: int, static_camera: bool = False,
+        row_window: tuple[int, int] | None = None) -> Tensor:
+    """row_window=(row0, global_h): the inputs are a halo-extended row shard
+    (dist/frame.py). The moving camera's history uv is clamped to the
+    global image and read from the shard; a pixel whose history taps lie
+    outside the shard rejects its history (blend 1), as tpuray's hist_ok
+    does."""
     h, w = linear_z.shape
     dev = linear_z.device
     sky = linear_z == 1.0
+    hist_ok = None
 
     if static_camera:
         # motion == 0: the history is the same pixel
@@ -114,11 +134,12 @@ def taa(cur_color: Tensor, prev_color: Tensor, velocity: Tensor,
         prev = prev_color
     else:
         vel = closest_velocity(velocity, linear_z)
-        yy, xx = torch.meshgrid(torch.arange(h, device=dev),
+        row0, gh = row_window if row_window is not None else (0, h)
+        yy, xx = torch.meshgrid(torch.arange(h, device=dev) + row0,
                                 torch.arange(w, device=dev), indexing="ij")
         u = torch.clamp((xx + 0.5) / w - vel[..., 0], 0.0, 1.0)
-        v = torch.clamp((yy + 0.5) / h - vel[..., 1], 0.0, 1.0)
-        prev = bilinear_fetch_clamped(prev_color, u, v)
+        v = torch.clamp((yy + 0.5) / gh - vel[..., 1], 0.0, 1.0)
+        prev, hist_ok = bilinear_fetch_clamped(prev_color, u, v, row_window)
 
     now_ycc = rgb_to_ycocgr(taa_tonemap(cur_color))
     prev_ycc = rgb_to_ycocgr(taa_tonemap(prev))
@@ -139,6 +160,8 @@ def taa(cur_color: Tensor, prev_color: Tensor, velocity: Tensor,
 
     speed = torch.sqrt(vel[..., 0] * vel[..., 0] + vel[..., 1] * vel[..., 1])
     blend = torch.clamp(0.05 + speed * 100.0, 0.0, 1.0)
+    if hist_ok is not None:
+        blend = torch.where(hist_ok, blend, 1.0)  # no history: the current color
     out = blend[..., None] * now_rgb + (1.0 - blend)[..., None] * prev_rgb
 
     passthrough = sky | (frame == 0)

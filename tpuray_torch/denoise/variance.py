@@ -42,7 +42,10 @@ class VarianceOutput(NamedTuple):
 
 def estimate_variance(illum: Tensor, variance: Tensor, moments: Tensor,
                       history_len: Tensor, normal: Tensor, linear_z: Tensor,
-                      fwidth_z: Tensor, cfg: RenderConfig) -> VarianceOutput:
+                      fwidth_z: Tensor, cfg: RenderConfig,
+                      row_window: tuple[int, int] | None = None) -> VarianceOutput:
+    """row_window=(row0, global_h): the inputs are a halo-extended row
+    shard; the bounds masks use global rows (dist/frame.py)."""
     shape = illum.shape[:2]
     dev = illum.device
     sky = linear_z == 1.0
@@ -57,7 +60,7 @@ def estimate_variance(illum: Tensor, variance: Tensor, moments: Tensor,
     radius = 3
     for dy in range(-radius, radius + 1):
         for dx in range(-radius, radius + 1):
-            inside = inside_mask(shape, dy, dx, dev)
+            inside = inside_mask(shape, dy, dx, dev, row_window)
             il_p = shift2d(illum, dy, dx)
             mo_p = shift2d(moments, dy, dx)
             z_p = shift2d(linear_z, dy, dx)

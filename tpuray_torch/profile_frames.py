@@ -1,7 +1,7 @@
 """Where a moving-camera frame's time goes, on the card.
 
     python -m tpuray_torch.profile_frames [--frames 8] [--size 800] [--out DIR]
-        [--runs svgf_off,svgf_on,mis,separate,forest_131k,train_step,
+        [--runs svgf_off,svgf_on,mis,separate,forest_131k,train_step,sharded,
                 file_20k,file_20k_off,file_5k,file_5k_off]
 
 Renders size x size frames, moving the camera 0.5 degrees a frame, for
@@ -12,7 +12,10 @@ for both); the 131k-triangle forest
 (make_large_scene(25 spheres, subdiv 4), SVGF on, OrbitCamera radius 4);
 and a train step on the test scene (chip_smoke.py phase 15: render_flat,
 its MSE's backward through every material and light field, Adam on
-base_color; a "frame" of this run is a step); and the test scene loaded
+base_color; a "frame" of this run is a step); the svgf_on frames through
+dist/frame.py:render_frame_sharded on a world of one (sharded: the
+plain denoise stages, pallas_denoise=False; a world of one holds the whole
+image and exchanges no halo); and the test scene loaded
 from an OBJ file by build_scene (file_scene: textured, the -1 material
 sentinels, 4 point lights) under the default RenderConfig, compaction and
 its budget buckets on, and with compaction off (_off): at subdiv 5 (20,482
@@ -47,10 +50,15 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import tpuray_torch
+from tpuray_torch.dist.frame import render_frame_sharded, shard_state
+from tpuray_torch.dist.sharding import make_mesh
+from tpuray_torch.integrator.gather_tables import pack_scene_tables
+from tpuray_torch.integrator.path_tracer import pack_traversal
 from tpuray_torch.kernels import atrous as ka
 from tpuray_torch.kernels import reproject as kr
 from tpuray_torch.kernels import trace as kt
 from tpuray_torch.kernels import trace_chunked as ktc
+from tpuray_torch.render.frame_state import FrameState
 from tpuray_torch.render.renderer import Renderer
 from tpuray_torch.scene import builder
 from tpuray_torch.scene.camera import OrbitCamera
@@ -168,6 +176,34 @@ class FrameRun:
         return res
 
 
+class ShardedRun(FrameRun):
+    """dist/frame.py:render_frame_sharded on `mesh` under one config with
+    its moving camera (every frame moving: the static branch is the
+    caller's choice there)."""
+
+    def __init__(self, scene, cfg: RenderConfig, tag: str, mesh, halo: int = 32,
+                 **cam_kw):
+        self.tag, self.cfg, self.mesh, self.halo = tag, cfg, mesh, halo
+        self.scene = scene.to(mesh.device)
+        with torch.no_grad():
+            self.tables = pack_traversal(self.scene)
+            self.pk = pack_scene_tables(self.scene)
+        self.state = shard_state(FrameState.initial(cfg.height, cfg.width), mesh)
+        self.cam = OrbitCamera(width=cfg.width, height=cfg.height, **cam_kw)
+        self.warmup = 3
+
+    def current_cfg(self) -> RenderConfig:
+        return self.cfg
+
+    @torch.no_grad()
+    def step(self):
+        self.cam.rotate(0.5, 0.0)
+        self.state, final, _ = render_frame_sharded(
+            self.scene, self.cam.snapshot(), self.state, self.cfg, self.cfg.height,
+            self.cfg.width, self.mesh, halo=self.halo, tables=self.tables, pk=self.pk)
+        return final
+
+
 class _TrainRun(FrameRun):
     """make_train_step's step from base_color * 0.4 + 0.3 toward the
     scene's own render (cli/main.py:cmd_train's recovery)."""
@@ -200,7 +236,7 @@ def main() -> None:
     ap.add_argument("--size", type=int, default=800)
     ap.add_argument("--out", type=Path, default=Path("build/profile"))
     ap.add_argument("--runs", default="svgf_off,svgf_on,mis,separate,forest_131k,train_step,"
-                    "file_20k,file_20k_off,file_5k,file_5k_off")
+                    "sharded,file_20k,file_20k_off,file_5k,file_5k_off")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_frames needs a CUDA device")
@@ -228,6 +264,8 @@ def main() -> None:
                                                          env_width=512, device="cuda"),
                                         cfg, "forest_131k", radius=4.0),
         "train_step": lambda: _TrainRun(test, cfg, "train_step"),
+        "sharded": lambda: ShardedRun(test, dataclasses.replace(cfg, pallas_denoise=False),
+                                      "sharded", make_mesh("cuda")),
         "file_20k": lambda: file_run(5, "file_20k", default),
         "file_20k_off": lambda: file_run(5, "file_20k_off", cfg),
         "file_5k": lambda: file_run(4, "file_5k", default),

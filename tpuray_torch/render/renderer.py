@@ -20,10 +20,9 @@ import numpy as np
 import torch
 
 from tpuray_torch.denoise.reproject import gather_mode
-from tpuray_torch.denoise.svgf import SVGFOutput, svgf_pipeline
+from tpuray_torch.denoise.svgf import ImageRows, SVGFOutput, plain_svgf, svgf_pipeline
 from tpuray_torch.integrator.gather_tables import PackedScene, pack_scene_tables
 from tpuray_torch.integrator.gbuffer import GBuffer, build_gbuffer
-from tpuray_torch.integrator.intersect import norm
 from tpuray_torch.integrator.path_tracer import (
     KERNELS, Tracer, check_config, pack_traversal, resolve_aniso, trace_paths)
 from tpuray_torch.kernels.trace import TraceTables
@@ -55,18 +54,16 @@ def camera_rays(camera: Camera, height: int, width: int
                 ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """Primary rays in 32x32-tile order -> (orig (N, 3) view, d (N, 3),
     px, py). px/py are GL frag coords (bottom-up), padding rows included."""
-    dev = camera.eye.device
-    xx, yy = tile_pixel_coords(height, width, dev)
-    n = xx.shape[0]
-    th = camera.tan_half_fov
-    xs = (2.0 * (xx.to(torch.float32) + 0.5) / width - 1.0) * th
-    ys = -((2.0 * (yy.to(torch.float32) + 0.5) / height - 1.0) * th)
-    c = camera.cam_to_world
-    # d = cam_to_world @ (xs, ys, -1), written out elementwise
-    d = torch.stack([c[i, 0] * xs + c[i, 1] * ys + c[i, 2] * -1.0
-                     for i in range(3)], dim=-1)
-    d = d / norm(d)
-    orig = camera.eye.expand(n, 3)
+    return pixel_rays(camera, height, width,
+                      *tile_pixel_coords(height, width, camera.eye.device))
+
+
+def pixel_rays(camera: Camera, height: int, width: int, xx: Tensor, yy: Tensor
+               ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The primary rays of pixels (xx, yy) (int32, row 0 the top row), in
+    their order -> (orig (N, 3) view, d (N, 3), px, py)."""
+    d = camera.pixel_directions(height, width, xx, yy)
+    orig = camera.eye.expand(xx.shape[0], 3)
     return orig, d, xx, height - 1 - yy
 
 
@@ -88,15 +85,9 @@ def render_frame(scene, camera: Camera, state: FrameState, cfg: RenderConfig,
     pt = trace_paths(scene, orig, d, px, py, frame, cfg, common_origin=True,
                      tracer=tracer, tables=tables, pk=pk)
 
-    color = untile(pt.color, height, width)
     emission = untile(pt.emission, height, width)
     albedo = untile(pt.albedo, height, width)
-    if cfg.accumulate:
-        t = float(np.float32(1.0) / (np.float32(frame) + np.float32(1.0)))
-        accum = state.accum_color + (color - state.accum_color) * t
-    else:
-        accum = color
-    pt_color = accum
+    accum = pt_color = accumulate(state, untile(pt.color, height, width), cfg)
 
     gbuf = build_gbuffer(
         point=untile(pt.first_hit_point, height, width),
@@ -104,9 +95,41 @@ def render_frame(scene, camera: Camera, state: FrameState, cfg: RenderConfig,
         valid=untile(pt.first_hit_valid, height, width),
         view_proj=camera.view_proj, prev_view_proj=state.prev_view_proj)
 
+    new_state, svgf, final = denoise_and_advance(
+        state, camera, cfg, pt_color, accum, emission, albedo, gbuf, static_camera)
+    outputs = FrameOutputs(
+        pt_color=pt_color, accum_color=accum, svgf=svgf, gbuffer=gbuf,
+        final=final,
+        coverage=torch.mean(pt.first_hit_valid.to(torch.float32)))
+    return new_state, outputs
+
+
+def accumulate(state: FrameState, color: Tensor, cfg: RenderConfig) -> Tensor:
+    """The progressive running mean of the frames' colors (cfg.accumulate),
+    else this frame's."""
+    if not cfg.accumulate:
+        return color
+    t = float(np.float32(1.0) / (np.float32(state.frame_idx) + np.float32(1.0)))
+    return state.accum_color + (color - state.accum_color) * t
+
+
+def denoise_and_advance(state: FrameState, camera: Camera, cfg: RenderConfig,
+                        pt_color: Tensor, accum: Tensor, emission: Tensor,
+                        albedo: Tensor, gbuf: GBuffer, static_camera: bool = False,
+                        rows: ImageRows | None = None
+                        ) -> tuple[FrameState, SVGFOutput, Tensor]:
+    """A frame's denoiser and state update from its traced images ->
+    (new_state, svgf, final). rows: the plain stages on those rows of the
+    image (dist/frame.py's row shards); None: svgf_pipeline, K4 and K5
+    under cfg.pallas_denoise."""
+    frame = state.frame_idx
     if cfg.enable_svgf:
-        svgf = svgf_pipeline(pt_color, emission, albedo, gbuf, state, cfg,
-                             static_camera=static_camera)
+        if rows is None:
+            svgf = svgf_pipeline(pt_color, emission, albedo, gbuf, state, cfg,
+                                 static_camera=static_camera)
+        else:
+            svgf = plain_svgf(pt_color, emission, albedo, gbuf, state, cfg,
+                              static_camera=static_camera, rows=rows)
         final = svgf.taa if cfg.enable_taa else svgf.modulated
         new_state = state.replace(
             illum_hist=svgf.history_tap, variance_hist=svgf.history_tap_var,
@@ -115,26 +138,22 @@ def render_frame(scene, camera: Camera, state: FrameState, cfg: RenderConfig,
             accum_color=accum, taa_color=svgf.taa, frame_idx=frame + 1,
             prev_view_proj=camera.view_proj)
     else:
-        z1 = torch.zeros((height, width), dtype=torch.float32,
-                         device=color.device)
+        z1 = torch.zeros(pt_color.shape[:2], dtype=torch.float32,
+                         device=pt_color.device)
         svgf = SVGFOutput(
             reprojected=pt_color, reprojected_var=z1, variance_illum=pt_color,
             variance_var=z1, atrous=pt_color, atrous_var=z1,
             history_tap=pt_color, history_tap_var=z1, modulated=pt_color,
             taa=pt_color,
-            moments=torch.zeros((height, width, 2), dtype=torch.float32,
-                                device=color.device),
+            moments=torch.zeros((*pt_color.shape[:2], 2), dtype=torch.float32,
+                                device=pt_color.device),
             history_len=z1)
         final = pt_color
         new_state = state.replace(
             prev_normal=gbuf.normal, prev_linear_z=gbuf.linear_z,
             accum_color=accum, taa_color=final, frame_idx=frame + 1,
             prev_view_proj=camera.view_proj)
-    outputs = FrameOutputs(
-        pt_color=pt_color, accum_color=accum, svgf=svgf, gbuffer=gbuf,
-        final=final,
-        coverage=torch.mean(pt.first_hit_valid.to(torch.float32)))
-    return new_state, outputs
+    return new_state, svgf, final
 
 
 def select_debug_view(outputs: FrameOutputs, view: DebugView) -> Tensor:

@@ -157,14 +157,21 @@ class Camera(_Fields):
         """(H, W, 3) normalized world-space primary directions, row-major
         with row 0 the top image row (tpuray/scene/types.py:210-222)."""
         dev = self.eye.device
+        yy, xx = torch.meshgrid(torch.arange(height, device=dev),
+                                torch.arange(width, device=dev), indexing="ij")
+        return self.pixel_directions(height, width, xx, yy)
+
+    def pixel_directions(self, height: int, width: int, xx: Tensor, yy: Tensor
+                         ) -> Tensor:
+        """(..., 3) normalized primary directions of the pixels (xx, yy)
+        (integer, row 0 the top image row): every primary ray of the port,
+        whatever the pixel order."""
         th = self.tan_half_fov
-        xs = 2.0 * (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) / width - 1.0
-        ys = -(2.0 * (torch.arange(height, dtype=torch.float32, device=dev) + 0.5)
-               / height - 1.0)
-        px, py = torch.meshgrid(xs * th, ys * th, indexing="xy")
+        xs = (2.0 * (xx.to(torch.float32) + 0.5) / width - 1.0) * th
+        ys = -((2.0 * (yy.to(torch.float32) + 0.5) / height - 1.0) * th)
         c = self.cam_to_world
-        # cam_to_world @ (px, py, -1), written out elementwise
-        d = torch.stack([c[i, 0] * px + c[i, 1] * py + c[i, 2] * -1.0
+        # cam_to_world @ (xs, ys, -1), written out elementwise
+        d = torch.stack([c[i, 0] * xs + c[i, 1] * ys + c[i, 2] * -1.0
                          for i in range(3)], dim=-1)
         return d / torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True))
 

@@ -11,8 +11,10 @@ them in place.
 
 The entry points run on the card unless asked otherwise: split_trainable
 moves the scene to `device` ("cuda" by default) and raises without CUDA
-unless given device="cpu", as the Renderer does. The mesh-parallel step
-(make_sharded_train_step) is ROADMAP.md item 14.
+unless given device="cpu", as the Renderer does. make_sharded_train_step
+is the row-parallel step over torch.distributed (dist/sharding.py): each
+rank renders its rows, and the gradients and the loss are all-reduced
+before every rank takes the same optimizer step.
 """
 from __future__ import annotations
 
@@ -20,7 +22,9 @@ import dataclasses
 from typing import Any, Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
+from tpuray_torch.dist.sharding import shard_rays, shard_span
 from tpuray_torch.integrator.path_tracer import (
     KERNELS, Tracer, pack_traversal, trace_paths)
 from tpuray_torch.kernels.trace import TraceTables
@@ -131,9 +135,56 @@ def make_train_step(rebuild: Callable, cfg: RenderConfig, height: int,
     return init, step
 
 
-def make_sharded_train_step(*args, **kwargs):
-    """The mesh-parallel step (rows sharded, gradients all-reduced) is not
-    ported yet."""
-    raise NotImplementedError(
-        "make_sharded_train_step (image rows sharded, gradient all-reduce) "
-        "is ROADMAP.md item 14 (distribution)")
+def make_sharded_train_step(rebuild: Callable, cfg: RenderConfig, height: int,
+                            width: int, mesh, optimizer: Callable | None = None,
+                            tracer: Tracer = KERNELS):
+    """Row-parallel train step over `mesh` (dist/sharding.py:make_mesh) ->
+    (init, step), as make_train_step's:
+    step(state, target_rows, camera, frame) -> (state, loss).
+
+    Each rank renders its rows of the image from global pixel coordinates
+    (render_tiled's rays) and takes the sum of its squared errors over
+    H * W * 3, the global mean's share; target_rows is its (rows, W, 3)
+    shard (shard_span). After the backward pass every parameter's gradient
+    and the loss are all-reduced (SUM) in one flat buffer, so each rank
+    holds the single-device gradient and takes the same optimizer step:
+    the parameters stay identical on every rank. The loss returned is the
+    global mean."""
+    if height % mesh.size:
+        raise ValueError(f"height {height} is not a multiple of {mesh.size} ranks")
+    row0, rows = shard_span(height, mesh)
+    make_opt = optimizer or (lambda leaves: torch.optim.Adam(leaves, lr=1e-2))
+    packed: list[TraceTables] = []
+
+    def loss_fn(params, target, camera, frame) -> Tensor:
+        scene = rebuild(params)
+        if not packed:
+            packed.append(pack_traversal(scene))
+        cam = camera.to(mesh.device)
+        orig, d, px, py = shard_rays(cam, height, width, row0, rows)
+        pt = trace_paths(scene, orig, d, px, py, int(frame), cfg,
+                         common_origin=True, tracer=tracer, tables=packed[0])
+        img = pt.color.reshape(rows, width, 3)
+        return torch.sum((img - target) ** 2) / (height * width * 3)
+
+    def step(state: TrainState, target: Tensor, camera: Camera, frame
+             ) -> tuple[TrainState, Tensor]:
+        state.opt_state.zero_grad(set_to_none=True)
+        loss = loss_fn(state.params, target, camera, frame)
+        loss.backward()
+        leaves = parameters(state.params)
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
+        flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1)])
+        if mesh.distributed:
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.group)
+        i = 0
+        for p, g in zip(leaves, grads):
+            p.grad = flat[i:i + g.numel()].view_as(g)
+            i += g.numel()
+        state.opt_state.step()
+        return state, flat[-1]
+
+    def init(params) -> TrainState:
+        return TrainState(params, make_opt(parameters(params)))
+
+    return init, step
