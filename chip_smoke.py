@@ -28,8 +28,9 @@ instructions in its SASS (cuobjdump -sass), then:
      default view), 2 warm-up frames, then 16 moving-camera frames with the
      launch counts set to 0 just before and read just after; checks the
      image and that every kernel ran; then 2 frames with the camera still
-     (the static-camera branch); then 3 frames through the kernels against
-     the same 3 frames through the plain versions;
+     (on the card a still camera is a moving one with zero motion: K4 and
+     K5 each frame, as on tpuray's own device); then 3 frames through the
+     kernels against the same 3 frames through the plain versions;
   6. slice 1's path (SVGF off): 8 moving frames and one frame against the
      plain-version frame;
   7. the SVGF chain (K4, K5 x 5, modulate, TAA) on one 1920x1080 frame's
@@ -70,7 +71,7 @@ instructions in its SASS (cuobjdump -sass), then:
      Adam with lr 1e-2 on base_color, the perturbed field) with the launch
      counts set to 0 just before and read just after (K1 1 and K2 2 a
      step); the loss must fall; then one step's gradients through the
-     kernels against the plain tracer's at 256x256;
+     kernels against the plain tracer's at 256x256 (train_check);
  16. the default RenderConfig (compaction on, its budget buckets chosen by
      the Renderer) at 800x800 on the test scene loaded from files: written
      as an OBJ with non-constant texture coordinates under build/, loaded by
@@ -116,9 +117,46 @@ instructions in its SASS (cuobjdump -sass), then:
      device ms and busy share of render_frame (K4, K5), render_frame with
      the plain denoiser and render_frame_sharded (a world of one: render_frame's
      plain stages on the row-major trace, no halo exchange), in one call.
+ 19. the viewer (viewer/server.py) on the card: ViewerServer on the 5k file
+     scene under RenderConfig(width=400, height=400), 30 frames long-polled
+     over loopback with no event (each PNG 400x400 and finite), then a
+     param event num_atrous_iterations=3 (K5 3 a frame from the next frame,
+     frame_idx back at 0), sigma_l=2.5 (in the config the frames render
+     with), a rotate and a view switch; every frame's launches checked
+     exactly (K1 1, K2 2 a bounce and again with the residual pass, K4 1,
+     K5 an iteration; no frame takes the static-camera branch) from a log
+     of the Renderer's render_frame calls; the 30th quiet frame's final
+     bit-equal to a direct Renderer's after as many steps; the same frames
+     replayed through the plain versions (plain tracer, pallas_denoise
+     off): the 30th quiet frame and the last frame with 3 iterations before
+     sigma_l against the server's, within the image tolerance of phase 16;
+     the viewer's own ms a frame
+     and a client's fps at 400x400 and 800x800 under RenderConfig(); then
+     `python -m tpuray_torch.cli.main view --port 0` as a subprocess: its
+     URL line, /, /state, 3 frames, and exit 0 within 30 s of SIGINT;
+ 20. `train` through the CLI as a subprocess at its defaults (64x64, depth
+     1, 20 steps, lr 0.05) and at 256x256, depth 2, 5 steps: exit 0, both
+     PNGs, finite losses, at the defaults the final loss below the first
+     (at 256x256 Adam at lr 0.05 overshoots, in tpuray too); then the
+     second run in this process with each step timed and its launches
+     counted (K1 1, K2 a bounce, again with the residual pass); then the
+     first step of that run's scene and config (the procedural scene, the
+     default compaction) through the kernels against the plain tracer: the
+     loss and every field's gradient (train_check);
+ 21. the native host library (io/native.py, g++; it must load on the
+     card's machine): the 20k file scene's OBJ, the repository's HDR (read
+     and write), a BMP and two env caches against their numpy copies; the
+     BVH of the 20k scene and of each of the 131k forest's 16 chunks
+     against build_bvh_py (first_tri, tri_count, skip equal, boxes within
+     1e-6, each leaf the same triangles; perm positions that tied
+     centroids order differently counted); set-up seconds native against
+     numpy for the 20k file scene and the 131k forest; K1 and K2 on a
+     moving 800x800 frame of the native-built 5k file scene, t bit-equal to
+     their plain versions.
 Any failed check raises (non-zero exit). The last lines are the kernels'
 JSON line (launches: the sum over every path run above, each run counted
-from 0 just before it, the sharded paths of phase 18 included; errors,
+from 0 just before it, the sharded paths of phase 18 and the viewer's and
+train's of phases 19 and 20 included; errors,
 times and bounds from phases 1-4, 8, 11 and 13), the card's name and power limit, then {"ok": true, "device": {...}}.
 Needs no network and no jax. Exits non-zero without a CUDA device.
 """
@@ -150,13 +188,14 @@ from tpuray_torch.kernels import reproject as kr
 from tpuray_torch.kernels import trace as kt
 from tpuray_torch.kernels import trace_chunked as ktc
 from tpuray_torch.render.frame_state import FrameState
-from tpuray_torch.render.renderer import Renderer, camera_rays, render_frame
+from tpuray_torch.render.renderer import Renderer, camera_rays, render_frame, tonemap
 from tpuray_torch.scene.camera import OrbitCamera
 from tpuray_torch.scene.config import RenderConfig
 from tpuray_torch.scene.procedural import make_large_scene, make_test_scene
 from tpuray_torch.train import optimize
 from tpuray_torch.denoise_times import (
     chain_times, fallback_shares, moving_renderer, step_increments)
+from tpuray_torch.io import native
 from tpuray_torch.io.image import read_png
 from tpuray_torch.profile_frames import FrameRun, ShardedRun, file_scene
 from tpuray_torch.traversal_times import (
@@ -194,6 +233,11 @@ DIST_ELASTIC_FRAMES = 5  # run_elastic's frames, a fault injected before frame 3
 # the frames of the timing runs: a plain-denoiser frame issues ~19,000
 # kernels, which the profiler takes seconds a frame to digest
 DIST_TIMED_FRAMES, DIST_PROFILE_FRAMES = 8, 1
+
+VIEW_SIZE = 400         # phase 19: the viewer's default size
+VIEW_FRAMES = 30        # phase 19's long-polled frames with no event
+VIEW_TIMED_FRAMES = 40  # phase 19's frames for ms and fps, at 400 and 800
+TRAIN_CLI = (["--size", "256", "--depth", "2", "--steps", "5"])  # phase 20's second run
 
 # H100 SXM published peaks (NVIDIA's data sheet, 700 W): HBM bytes/s and
 # float32 operations/s outside the tensor cores
@@ -626,28 +670,36 @@ def phase_train(scene, dev) -> dict:
             raise AssertionError("a trained parameter is not finite")
 
     n = TRAIN_CHECK_SIZE
-    cfg_s = dataclasses.replace(cfg, width=n, height=n)
-    cam_s = OrbitCamera(width=n, height=n).snapshot(dev)
+    train_check(scene, dataclasses.replace(cfg, width=n, height=n), dev, "train-step")
+    return run
+
+
+def train_check(scene, cfg, dev, tag: str) -> None:
+    """One train step's loss and gradients (train_grads) at cfg's size
+    through the kernels against the plain tracer: the loss within rtol
+    1e-5, each field's gradient within GRAD_ATOL of its largest |g|."""
+    n = cfg.width
+    cam = OrbitCamera(width=n, height=n).snapshot(dev)
     with torch.no_grad():
-        target_s = optimize.render_flat(scene, cam_s, cfg_s, n, n, 0)
-    loss_k, g_k = train_grads(scene, cfg_s, cam_s, target_s, n, pt.KERNELS)
+        target = optimize.render_flat(scene, cam, cfg, n, n, 0)
+    loss_k, g_k = train_grads(scene, cfg, cam, target, n, pt.KERNELS)
     (loss_p, g_p), plain_ms = once_ms(
-        lambda: train_grads(scene, cfg_s, cam_s, target_s, n, pt.PLAIN))
+        lambda: train_grads(scene, cfg, cam, target, n, pt.PLAIN))
     worst = 0.0
     for name, ref in g_p.items():
         got = g_k[name]
         scale = float(ref.abs().max())
         err = float((got - ref).abs().max())
         if not bool(torch.isfinite(got).all()) or err > GRAD_ATOL * scale + 1e-12:
-            raise AssertionError(f"train-step gradient {name}: kernels differ from plain "
+            raise AssertionError(f"{tag} gradient {name}: kernels differ from plain "
                                  f"by {err:.3g} (largest |g| {scale:.3g})")
         worst = max(worst, err / scale if scale else 0.0)
     if abs(loss_k - loss_p) > 1e-5 * abs(loss_p):
-        raise AssertionError(f"train-step loss: kernels {loss_k} vs plain {loss_p}")
-    log(f"train-step gradients at {n}x{n}: kernels vs plain tracer, loss "
-        f"{loss_k:.9g} vs {loss_p:.9g}, max |diff| / max |g| per field {worst:.3g} (atol "
-        f"{GRAD_ATOL} of it); plain step {plain_ms:.1f} ms")
-    return run
+        raise AssertionError(f"{tag} loss: kernels {loss_k} vs plain {loss_p}")
+    log(f"{tag} gradients at {n}x{n}, depth {cfg.max_tracing_depth}, compact_frac "
+        f"{cfg.compact_frac}: kernels vs plain tracer, loss {loss_k:.9g} vs {loss_p:.9g}, "
+        f"max |diff| / max |g| per field {worst:.3g} (atol {GRAD_ATOL} of it); plain "
+        f"step {plain_ms:.1f} ms")
 
 def _frame_walks(forest: bool, residual: bool) -> dict:
     """The traversal launches of one moving depth-2 NEE frame: a forest
@@ -1055,6 +1107,485 @@ def phase_cli_elastic() -> None:
         raise AssertionError(f"the CLI wrote an image of shape {img.shape}")
 
 
+class FrameLog:
+    """Records each frame a Renderer renders on any thread: the config and
+    static-camera choice render_frame got, the frame index it started from,
+    a host copy of the camera's view matrix, the launches it made, whether
+    the residual pass ran (the hit count read against the budget) and a
+    copy of its final image. Installed by wrapping renderer.render_frame
+    and path_tracer.host_count."""
+
+    def __init__(self):
+        self.frames: list[dict] = []
+        self._counts: list[int] = []
+        self._saved = None
+
+    def __enter__(self):
+        from tpuray_torch.render import renderer as rmod
+        real_frame, real_count = rmod.render_frame, pt.host_count
+
+        def count(c):
+            n = real_count(c)
+            self._counts.append(n)
+            return n
+
+        def frame(scene, camera, state, cfg, height, width, **kw):
+            before, self._counts[:] = launches(), []
+            new_state, out = real_frame(scene, camera, state, cfg, height, width, **kw)
+            after = launches()
+            budget = pt._compact_budget(height * width, cfg)
+            self.frames.append(dict(
+                cfg=cfg, static=kw.get("static_camera", False), frame_idx=state.frame_idx,
+                view=camera.view_proj.cpu(),
+                launches={k: after[k] - before[k] for k in after},
+                residual=bool(budget and any(n > budget for n in self._counts)),
+                final=out.final.clone()))
+            return new_state, out
+
+        self._saved = (rmod, real_frame, real_count)
+        rmod.render_frame, pt.host_count = frame, count
+        return self
+
+    def __exit__(self, *exc):
+        rmod, real_frame, real_count = self._saved
+        rmod.render_frame, pt.host_count = real_frame, real_count
+
+    def expected(self, f: dict) -> dict:
+        """A single-tree frame's launches on the card: K1 1, K2 a bounce
+        (again with the residual pass), K4 1 (a still camera too), K5 an
+        iteration."""
+        d = f["cfg"].max_tracing_depth
+        return dict(k1=1, k2=d * (2 if f["residual"] else 1), k3=0, k4=1,
+                    k5=f["cfg"].num_atrous_iterations, k6=0, k7=0)
+
+
+def http(port: int, path: str, body: dict | None = None, timeout: float = 60.0):
+    """(status, headers, bytes) of a GET, or of a POST of JSON `body`."""
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=None if body is None else json.dumps(body).encode(),
+                                 method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, dict(r.headers), r.read()
+
+
+def poll_frames(port: int, n: int, seq: int = -1) -> list[tuple]:
+    """Long-poll n frames, each newer than the last -> [(seq, stats, png)]."""
+    got = []
+    while len(got) < n:
+        status, headers, png = http(port, f"/frame.png?seq={seq}")
+        if status == 204:
+            continue
+        seq = int(headers["X-Seq"])
+        got.append((seq, json.loads(headers["X-Stats"]), png))
+    return got
+
+
+def event(port: int, flog: FrameLog, ev: dict) -> int:
+    """POST a control event, then wait until a frame that started after it
+    is published (the third frame polled from then: the first may be older
+    than the POST, the second may have started before it) -> how many
+    frames were logged when the POST returned: the event reaches frame
+    n or n + 1."""
+    http(port, "/control", ev)
+    n = len(flog.frames)
+    poll_frames(port, 3)
+    return n
+
+
+def check_png(name: str, png: bytes, size: int) -> None:
+    """The PNG decodes to a finite size x size RGB image."""
+    path = Path("build") / "viewer_frame.png"
+    path.write_bytes(png)
+    img = read_png(str(path))
+    if img.shape != (size, size, 3) or not bool(torch.isfinite(torch.from_numpy(img)).all()):
+        raise AssertionError(f"{name}: PNG of shape {img.shape}")
+
+
+def viewer_times(scene, size: int) -> tuple[float, float, dict]:
+    """The viewer's own ms per frame (median of its X-Stats), the fps a
+    client long-polling it sees, and the median ms of a frame's parts
+    (Renderer.step's host call; tonemap and the copy to the host, which
+    waits for the device; the PNG; and, for comparison, a Renderer's step
+    and copy on this thread with no server running), under RenderConfig()
+    at size x size with no frame cap."""
+    from tpuray_torch.viewer import server as vs
+    s = vs.ViewerServer(scene, RenderConfig(width=size, height=size), port=0, max_fps=1e6)
+    parts = {"step": [], "tonemap + copy": [], "png": []}
+    marks = {}
+    real_step, real_png = s.renderer.step, vs.encode_png
+
+    def step(camera):
+        t0 = time.perf_counter()
+        out = real_step(camera)
+        marks["step"] = t0, time.perf_counter()
+        return out
+
+    def png(img, **kw):
+        t0 = time.perf_counter()
+        data = real_png(img, **kw)
+        parts["step"].append((marks["step"][1] - marks["step"][0]) * 1e3)
+        parts["tonemap + copy"].append((t0 - marks["step"][1]) * 1e3)
+        parts["png"].append((time.perf_counter() - t0) * 1e3)
+        return data
+
+    s.renderer.step, vs.encode_png = step, png
+    s.start()
+    try:
+        poll_frames(s.port, 3)  # warm-up
+        t0 = time.perf_counter()
+        got = poll_frames(s.port, VIEW_TIMED_FRAMES)
+        wall = time.perf_counter() - t0
+    finally:
+        s.stop()
+        vs.encode_png = real_png
+    s.check()
+    # the same frames from a Renderer on this thread, no server around it
+    r = Renderer(scene, RenderConfig(width=size, height=size))
+    cam = OrbitCamera(width=size, height=size).snapshot()
+    parts["direct step + copy"] = []
+    for _ in range(VIEW_TIMED_FRAMES):
+        t0 = time.perf_counter()
+        tonemap(r.step(cam).final).cpu()
+        parts["direct step + copy"].append((time.perf_counter() - t0) * 1e3)
+    seqs = [g[0] for g in got]
+    return (statistics.median(g[1]["ms"] for g in got), (seqs[-1] - seqs[0]) / wall,
+            {k: round(statistics.median(v[3:]), 3) for k, v in parts.items()})
+
+
+def phase_viewer(dev) -> dict:
+    """19. The viewer on the card -> its counted frames' launches."""
+    from tpuray_torch.viewer.server import ViewerServer
+    scene = file_scene(4, device=dev)
+    cfg = RenderConfig(width=VIEW_SIZE, height=VIEW_SIZE)
+    total = dict(k1=0, k2=0, k3=0, k4=0, k5=0, k6=0, k7=0)
+    with FrameLog() as flog:
+        s = ViewerServer(scene, cfg, port=0)
+        s.start()
+        try:
+            got = poll_frames(s.port, VIEW_FRAMES)
+            n_quiet = len(flog.frames)
+            n_post = event(s.port, flog, {"type": "param", "name": "num_atrous_iterations",
+                                          "value": 3})
+            n_sigma = event(s.port, flog, {"type": "param", "name": "sigma_l", "value": 2.5})
+            n_rot = event(s.port, flog, {"type": "rotate", "dx": 5.0, "dy": 0.0})
+            n_view = event(s.port, flog, {"type": "view", "view": 2})
+            seq, stats, png = poll_frames(s.port, 1)[-1]
+            check_png("viewer variance view", png, VIEW_SIZE)
+            state = json.loads(http(s.port, "/state")[2])
+            # checked after the events, so that the first follows the 30th
+            # frame closely and the plain replay below stays short
+            for q_seq, _, q_png in got:
+                check_png(f"viewer frame {q_seq}", q_png, VIEW_SIZE)
+        finally:
+            s.stop()
+        s.check()
+    frames = flog.frames
+    if any(f["static"] for f in frames):
+        raise AssertionError("a viewer frame on the card took the plain static-camera branch")
+    for i, f in enumerate(frames):
+        expect_launches(f"viewer frame {i}", f["launches"], flog.expected(f))
+        add_launches(total, f["launches"])
+    after = frames[n_post + 1:]  # a frame may have been in flight during the POST
+    first3 = next(i for i, f in enumerate(frames) if f["cfg"].num_atrous_iterations == 3)
+    if not (n_post <= first3 <= n_post + 1 and frames[first3]["frame_idx"] == 0
+            and all(f["cfg"].num_atrous_iterations == 3 for f in after)):
+        raise AssertionError(f"num_atrous_iterations=3 reached frame {first3} (posted "
+                             f"after frame {n_post})")
+    if not all(f["cfg"].sigma_l == 2.5 for f in frames[n_sigma + 1:]):
+        raise AssertionError("sigma_l=2.5 did not reach the frames after it")
+    moved = [i for i in (n_rot, n_rot + 1)
+             if not torch.equal(frames[i]["view"], frames[i - 1]["view"])]
+    if len(moved) != 1 or frames[moved[0]]["frame_idx"] != 0:
+        raise AssertionError("the rotate event did not reach one moving frame: "
+                             + str([(i, frames[i]["frame_idx"]) for i in moved]))
+    if not (stats["text"].split("\n")[1].startswith("view: svgf_variance")
+            and state["view"] == 2 and state["params"]["num_atrous_iterations"] == 3):
+        raise AssertionError(f"view switch: stats {stats}, state {state}")
+    residual = sum(f["residual"] for f in frames)
+    log(f"viewer: {len(frames)} frames at {VIEW_SIZE}x{VIEW_SIZE} on the 5k file scene, "
+        f"{VIEW_FRAMES} long-polled with no event (PNGs {VIEW_SIZE}x{VIEW_SIZE}, finite); "
+        f"launches per frame as expected (K4 on every frame, residual passes "
+        f"{residual}); total {total}; "
+        f"num_atrous_iterations=3 from frame {first3} (posted after {n_post}), frame_idx "
+        f"back at 0; sigma_l and the view switch applied (posted after {n_sigma}, {n_view})")
+
+    # no events: the server's n-th final equals a direct Renderer's n-th
+    r = Renderer(scene, cfg)
+    cam = OrbitCamera(width=VIEW_SIZE, height=VIEW_SIZE).snapshot()
+    for i in range(n_quiet):
+        out = r.step(cam)
+    if not torch.equal(out.final, frames[n_quiet - 1]["final"]):
+        d = float((out.final - frames[n_quiet - 1]["final"]).abs().max())
+        raise AssertionError(f"viewer frame {n_quiet}: final differs from a Renderer's by {d}")
+    log(f"viewer: frame {n_quiet}'s final bit-equal to a direct Renderer's after "
+        f"{n_quiet} steps of the same camera")
+
+    # the same frames through the plain versions: the last quiet frame, then
+    # the last frame with 3 iterations before sigma_l (the event replayed as
+    # _apply_events applies it: the config, then a reset keeping the history)
+    last3 = max(i for i, f in enumerate(frames) if f["cfg"].num_atrous_iterations == 3
+                and f["cfg"].sigma_l == cfg.sigma_l)
+    p = Renderer(scene, dataclasses.replace(cfg, pallas_denoise=False), tracer=pt.PLAIN)
+    t0 = time.perf_counter()
+    for i in range(last3 + 1):
+        if i == first3:
+            p.cfg = p.cfg.replace(num_atrous_iterations=3)
+            p.reset()
+        out = p.step(cam)
+        if i in (n_quiet - 1, last3):
+            assert_images_close(f"viewer frame {i + 1} final ({frames[i]['cfg'].num_atrous_iterations}"
+                                f" iterations), kernels vs plain", frames[i]["final"], out.final)
+    log(f"viewer: {last3 + 1} plain-version frames in {time.perf_counter() - t0:.1f} s")
+
+    for size in (VIEW_SIZE, 800):
+        ms, fps, parts = viewer_times(scene, size)
+        log(f"viewer {size}x{size}, RenderConfig(), no frame cap: its own ms/frame median "
+            f"{ms:.3f} (events, step, tonemap, the copy to the host, PNG), client fps "
+            f"{fps:.2f} over {VIEW_TIMED_FRAMES} long-polled frames; medians of its parts "
+            f"{parts} ms")
+    phase_cli_view()
+    return total
+
+
+def phase_cli_view() -> None:
+    """19. `view` through the CLI: the URL line, /, /state, 3 frames, then
+    SIGINT must end it with exit 0 within 30 s."""
+    import signal
+    import threading
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "tpuray_torch.cli.main", "view", "--port", "0"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        lines: list[str] = []
+        reader = threading.Thread(target=lambda: lines.append(proc.stdout.readline()),
+                                  daemon=True)
+        reader.start()
+        reader.join(timeout=300)
+        m = re.search(r"http://[^:]+:(\d+)/", lines[0] if lines else "")
+        if not m:
+            raise AssertionError(f"view printed {lines}; stderr {proc.stderr.read()[-2000:]}"
+                                 if proc.poll() is not None else f"view printed {lines}")
+        port = int(m.group(1))
+        page = http(port, "/")[2]
+        state = json.loads(http(port, "/state")[2])
+        got = poll_frames(port, 3)
+        for seq, stats, png in got:
+            check_png(f"view frame {seq}", png, VIEW_SIZE)
+        up = time.perf_counter() - t0
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    err = proc.stderr.read()
+    log(f"cli view: {lines[0].strip()} after {up:.1f} s; page {len(page)} bytes, state "
+        f"{state}, 3 frames ({[g[1]['ms'] for g in got]} ms); SIGINT -> exit {rc}")
+    if rc != 0 or b"tpuray" not in page or state["width"] != VIEW_SIZE:
+        raise AssertionError(f"view exited {rc}; stderr {err[-2000:]}")
+
+
+def _cli_train(args: list[str], prefix: str, falls: bool) -> tuple[list[float], float]:
+    """`train` as a subprocess -> (printed losses, final loss): exit 0, both
+    PNGs at the size asked for, finite losses, and with `falls` the final
+    loss below the first."""
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "tpuray_torch.cli.main", "train", *args,
+           "--out-prefix", prefix]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+    losses = [float(x) for x in re.findall(r"step \d+: loss ([0-9.eE+-]+)", proc.stderr)]
+    final = re.search(r"final loss ([0-9.eE+-]+)", proc.stderr)
+    log(f"cli: {' '.join(cmd[3:])} -> exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s; losses {losses}, "
+        f"{final.group(0) if final else 'no final loss'}")
+    if proc.returncode != 0 or not losses or final is None:
+        raise AssertionError(f"train exited {proc.returncode}: {proc.stderr[-2000:]}")
+    size = int(args[args.index("--size") + 1]) if "--size" in args else 64
+    for name in ("target", "fit"):
+        img = read_png(f"{prefix}_{name}.png")
+        if img.shape != (size, size, 3):
+            raise AssertionError(f"train wrote a {name} PNG of shape {img.shape}")
+    if not all(math.isfinite(x) for x in losses + [float(final.group(1))]):
+        raise AssertionError(f"train losses are not finite: {losses}, {final.group(0)}")
+    if falls and not float(final.group(1)) < losses[0]:
+        raise AssertionError(f"the train loss does not fall: {losses}, {final.group(0)}")
+    return losses, float(final.group(1))
+
+
+def phase_cli_train() -> dict:
+    """20. `train` through the CLI at its defaults and at 256x256, depth 2,
+    then the 256x256 run in this process with each step timed and its
+    launches counted -> those steps' launches."""
+    from tpuray_torch.cli import main as cli
+    _cli_train([], "build/train_default", falls=True)
+    # at lr 0.05 Adam on every leaf overshoots at depth 2 in tpuray too: its
+    # loss after the first step is ~4x the first (tests/test_torch_cli.py
+    # test_train_at_256_follows_tpuray)
+    _cli_train(TRAIN_CLI, "build/train_256", falls=False)
+
+    steps, real = [], optimize.make_train_step
+    counts: list[int] = []
+    real_count = pt.host_count
+
+    def make(rebuild, cfg, height, width, *a, **kw):
+        init, step = real(rebuild, cfg, height, width, *a, **kw)
+        budget = pt._compact_budget(height * width, cfg)
+
+        def timed(*sa, **skw):
+            torch.cuda.synchronize()
+            before, counts[:] = launches(), []
+            t0 = time.perf_counter()
+            state, loss = step(*sa, **skw)
+            torch.cuda.synchronize()
+            after = launches()
+            steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                              launches={k: after[k] - before[k] for k in after},
+                              residual=bool(budget and any(n > budget for n in counts)),
+                              depth=cfg.max_tracing_depth))
+            return state, loss
+        return init, timed
+
+    def count(c):
+        n = real_count(c)
+        counts.append(n)
+        return n
+
+    optimize.make_train_step, pt.host_count = make, count
+    try:
+        rc = cli.main(["train", *TRAIN_CLI, "--out-prefix", "build/train_timed"])
+    finally:
+        optimize.make_train_step, pt.host_count = real, real_count
+    if rc != 0:
+        raise AssertionError(f"train returned {rc}")
+    total = dict(k1=0, k2=0, k3=0, k4=0, k5=0, k6=0, k7=0)
+    for i, s in enumerate(steps):
+        expect_launches(f"train step {i}", s["launches"], dict(
+            k1=1, k2=s["depth"] * (2 if s["residual"] else 1), k3=0, k4=0, k5=0, k6=0, k7=0))
+        add_launches(total, s["launches"])
+    ms = [round(s["ms"], 3) for s in steps]
+    log(f"train through the CLI, {' '.join(TRAIN_CLI)}: step ms {ms}, median "
+        f"{statistics.median(ms):.3f} ms (steps 2-{len(ms)}: "
+        f"{statistics.median(ms[1:]):.3f}); launches a step "
+        f"{steps[-1]['launches']} (residual pass {steps[-1]['residual']}); total {total}")
+    size, depth = (int(TRAIN_CLI[TRAIN_CLI.index(k) + 1]) for k in ("--size", "--depth"))
+    train_check(cli._build_scene("procedural", False).to("cuda"),
+                RenderConfig(width=size, height=size, max_tracing_depth=depth), "cuda",
+                "train CLI step")
+    return total
+
+
+def _same_tree(name: str, got: dict, want: dict) -> int:
+    """The native BVH against the numpy one: first_tri, tri_count and skip
+    equal, the boxes within atol 1e-6, every leaf holding the same
+    triangles -> how many perm positions differ (tied centroids that the
+    two sorts order differently inside a leaf)."""
+    import numpy as np
+    for k in ("first_tri", "tri_count", "skip"):
+        if not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"{name}: {k} differs from the numpy build")
+    box = max(float(np.abs(got[k] - want[k]).max()) for k in ("aabb_min", "aabb_max"))
+    if box > 1e-6:
+        raise AssertionError(f"{name}: boxes differ by {box}")
+    for f, c in zip(want["first_tri"], want["tri_count"]):
+        if c and set(got["perm"][f:f + c].tolist()) != set(want["perm"][f:f + c].tolist()):
+            raise AssertionError(f"{name}: leaf at {f} holds other triangles")
+    return int((got["perm"] != want["perm"]).sum())
+
+
+def phase_native(dev) -> None:
+    """21. The native host library against its numpy copies, set-up times,
+    and a frame on a native-built scene."""
+    import numpy as np
+    from tpuray_torch.io import fallback, native
+    from tpuray_torch.io.image import write_bmp
+    from tpuray_torch.scene import host, partition
+    from tpuray_torch.scene.procedural import icosphere, ground_quad, write_test_scene_obj
+    if not native.available():
+        raise AssertionError(f"the native library did not load: {native.build_log}")
+    obj = Path("build") / "native_scene_5.obj"  # the 20k file scene's OBJ
+    write_test_scene_obj(str(obj), 5)
+    for got, want in zip(native.parse_obj_native(str(obj)), fallback.parse_obj_py(str(obj))):
+        if not np.array_equal(got, want):
+            raise AssertionError("OBJ: the native parse differs from numpy's")
+    hdr = "assets/recovered_env.hdr"
+    env = native.read_hdr_native(hdr)
+    if not np.array_equal(env, fallback.read_hdr_py(hdr)):
+        raise AssertionError("HDR: the native read differs from numpy's")
+    for a, writer in (("build/native.hdr", native.write_hdr_native),
+                      ("build/numpy.hdr", fallback.write_hdr_py)):
+        writer(a, env[:64, :128])
+    if Path("build/native.hdr").read_bytes() != Path("build/numpy.hdr").read_bytes():
+        raise AssertionError("HDR: the native write differs from numpy's")
+    write_bmp("build/native.bmp", np.random.default_rng(7).random((33, 47, 3)))
+    if not np.array_equal(native.read_bmp_native("build/native.bmp"),
+                          fallback.read_bmp_py("build/native.bmp")):
+        raise AssertionError("BMP: the native read differs from numpy's")
+    for name, img in (("room 512", host.procedural_room_envmap(512)), ("recovered", env)):
+        got, want = native.env_cache_native(img), host.env_cache_py(img)
+        pdf = float((np.abs(got[..., 2] - want[..., 2]) / want[..., 2].max()).max())
+        if not np.array_equal(got[..., :2], want[..., :2]) or pdf > 1e-6:
+            raise AssertionError(f"env cache {name}: differs (pdf {pdf:.3g} of its max)")
+    tris20 = np.concatenate([icosphere(5), ground_quad()]).astype(np.float32) * 2.0
+    ties = {"20k": _same_tree("BVH 20k", native.build_bvh_native(tris20, 8),
+                              host.build_bvh_py(tris20, 8))}
+    rs = np.random.RandomState(11)  # make_large_scene_arrays(25, 4)'s spheres
+    blobs = []
+    for _ in range(25):
+        r = 0.12 + 0.18 * rs.rand()
+        c = (rs.rand(3) - 0.5) * np.asarray([3.0, 1.2, 3.0])
+        c[1] = max(c[1], -0.5 + r)
+        blobs.append(icosphere(4, radius=r, center=tuple(c)))
+    tris131 = np.concatenate(blobs + [ground_quad()]).astype(np.float32)
+    for i, idx in enumerate(partition.partition_triangles(tris131, 8192)):
+        ties[f"131k chunk {i}"] = _same_tree(f"BVH 131k chunk {i}",
+                                             native.build_bvh_native(tris131[idx], 8),
+                                             host.build_bvh_py(tris131[idx], 8))
+    log(f"native: OBJ, HDR (read, write), BMP and both env caches equal their numpy "
+        f"copies; BVH trees equal (boxes within 1e-6), perm positions ordered "
+        f"differently by tied centroids inside a leaf {ties}")
+
+    real = native.get_lib
+    secs = {}
+    for how in ("native", "numpy"):
+        if how == "numpy":
+            native.get_lib = lambda: None
+        try:
+            t0 = time.perf_counter()
+            file_scene(5, device=dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            make_large_scene(n_spheres=25, subdiv=4, env_width=512, device=dev)
+            torch.cuda.synchronize()
+            secs[how] = (t1 - t0, time.perf_counter() - t1)
+        finally:
+            native.get_lib = real
+    log(f"set-up s, native vs numpy: 20k file scene {secs['native'][0]:.3f} vs "
+        f"{secs['numpy'][0]:.3f}; 131k forest {secs['native'][1]:.3f} vs "
+        f"{secs['numpy'][1]:.3f} (build + upload)")
+
+    scene = file_scene(4, device=dev)  # native-built, a single tree
+    tables = pt.pack_traversal(scene)
+    cam = OrbitCamera(width=W, height=H, yaw_deg=20.0).snapshot(dev)
+    calls = recorded_calls(scene, DEFAULT, tables, camera_rays(cam, H, W))
+    for name, args, kw in calls:
+        if name == "packets":
+            t_k, i_k = kt.trace_packets(*args, **kw)
+            check_closest("native scene K1", t_k, i_k, *kt.trace_packets_plain(*args, **kw))
+        elif name == "multi":  # args: tables, origins, directions, t_max, any_hit
+            got, ref = kt.trace_multi(*args, **kw), kt.trace_multi_plain(*args, **kw)
+            for c, any_hit in enumerate(args[4]):
+                if any_hit:
+                    check_any(f"native scene K2 any-hit class {c}", got[c][1], ref[c][1])
+                else:
+                    check_closest(f"native scene K2 class {c}", got[c][0], got[c][1], *ref[c])
+    if [c[0] for c in calls][:2] != ["packets", "multi"]:
+        raise AssertionError(f"native scene frame calls {[c[0] for c in calls]}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1069,6 +1600,12 @@ def main() -> None:
     how = (f"nvcc {build.build_seconds:.2f} s" if build.build_log
            else "already built from these sources")
     log(f"build: {time.perf_counter() - t0:.2f} s ({how}) -> {build.library_path()}")
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError(f"the native host library did not build: {native.build_log}")
+    how = (f"g++ {native.build_seconds:.2f} s" if native.build_seconds
+           else "already built from this source")
+    log(f"native: {time.perf_counter() - t0:.2f} s ({how}) -> {native.library_path()}")
     report = build.build_log or (build.library_path().parent / "build.log").read_text()
     ptxas = ptxas_summary(report)
     for kernel, (regs, stack, spill, shared) in ptxas.items():
@@ -1226,14 +1763,15 @@ def main() -> None:
         raise AssertionError(f"history_len does not grow: {hist_max}")
     log(f"history_len max per frame {hist_max[0]:.0f} -> {hist_max[-1]:.0f}")
 
-    # the camera still: the static-camera branch (no K4; K5 still runs)
+    # the camera still: on the card the moving path with zero motion (K4 and
+    # K5 each frame; the static-camera branch is the CPU's)
     reset_launches()
     for _ in range(2):
         out = r.step(cam.snapshot())
     still = launches()
     log(f"still frames: 2, launches {still}")
-    if still["k4"] != 0 or still["k5"] != 2 * SLICE.num_atrous_iterations:
-        raise AssertionError(f"the still frames did not take the static branch: {still}")
+    if still["k4"] != 2 or still["k5"] != 2 * SLICE.num_atrous_iterations:
+        raise AssertionError(f"the still frames did not run K4 and K5 each: {still}")
     check_image(out, svgf_on=True)
 
     # 3 frames through the kernels against the same 3 through the plain versions
@@ -1435,6 +1973,11 @@ def main() -> None:
     # ---- 18. distribution on one NCCL rank, the elastic loop
     run, k1_rows_ms, k1_tiles_ms = phase_dist(scene, dev)
     add_launches(path_launches, run)
+
+    # ---- 19. the viewer; 20. train through the CLI; 21. the native library
+    add_launches(path_launches, phase_viewer(dev))
+    add_launches(path_launches, phase_cli_train())
+    phase_native(dev)
 
     def entry(name, source, replaces, key, err, ms, plain_ms, b, library_ms=None):
         return dict(name=name, route="cuda", source=source, replaces=replaces,

@@ -40,7 +40,6 @@ iterations, make_test_scene(subdiv=1, env_width=32), halo 8).
 """
 import concurrent.futures
 import dataclasses
-import functools
 
 import numpy as np
 import pytest
@@ -48,7 +47,6 @@ import torch
 import jax.numpy as jnp
 
 import tpuray.scene.procedural as jproc
-from tpuray.accel.bvh import build_bvh
 from tpuray.denoise import atrous as jatrous
 from tpuray.denoise import common as jcommon
 from tpuray.denoise import reproject as jreproject
@@ -167,16 +165,11 @@ def test_mesh_2_vs_4(sharded):
 
 @pytest.fixture(scope="module")
 def tpuray_frames():
-    """tpuray's render_frame_sharded on a JAX mesh of 4 (numpy BVH builder
-    forced, as the port's scene is built): the moving frames, and the still
-    frame after a first one; and tpuray's single-device render_frame over
-    the moving frames (the exact history read)."""
-    orig = jproc.build_bvh
-    jproc.build_bvh = functools.partial(build_bvh, force_py=True)
-    try:
-        scene = jproc.make_test_scene(**dryrun.CHECK_SCENE)
-    finally:
-        jproc.build_bvh = orig
+    """tpuray's render_frame_sharded on a JAX mesh of 4 (both packages'
+    native BVH builds are the same tree at this size): the moving frames,
+    and the still frame after a first one; and tpuray's single-device
+    render_frame over the moving frames (the exact history read)."""
+    scene = jproc.make_test_scene(**dryrun.CHECK_SCENE)
     cfg = JRenderConfig(width=N, height=N, **dryrun.CHECK_CFG)
     mesh = j_make_mesh(4)
 

@@ -54,6 +54,8 @@ from tpuray_torch.scene.camera import OrbitCamera
 from tpuray_torch.scene.config import RenderConfig
 from tpuray_torch.scene.types import scene_from_numpy, scene_to_numpy
 
+from tests.test_torch_native import port_numpy_builders
+
 torch.set_num_threads(2)
 
 SLICE = dict(enable_svgf=False, compact_frac=0.0, compact_auto=False)
@@ -177,6 +179,18 @@ def test_renderer_needs_cuda_unless_asked_for_cpu(scenes, monkeypatch):
     assert tpuray_torch.Renderer(ts, cfg, device="cpu").device.type == "cpu"
 
 
+def test_still_camera_is_off_the_card_only():
+    """An unchanged view after frame 0 takes the static-camera branch off
+    the card only, as tpuray takes it only off its own device; on the card
+    a still camera runs K4 with zero motion."""
+    from tpuray_torch.render.renderer import still_camera
+    vp = np.eye(4, dtype=np.float32)
+    assert still_camera(torch.device("cpu"), 1, vp, vp.copy())
+    assert not still_camera(torch.device("cpu"), 0, vp, vp.copy())
+    assert not still_camera(torch.device("cpu"), 1, vp, 2 * vp)
+    assert not still_camera(torch.device("cuda"), 1, vp, vp.copy())
+
+
 @pytest.mark.parametrize("field,value,item", [
     ("reproject_gather", "tiled", "TPU-only"),
     ("fast_reproject", True, "TPU-only"),
@@ -237,8 +251,9 @@ H3 = W3 = 32
 
 @pytest.fixture(scope="module")
 def large_scenes():
-    """make_large_scene in both packages (the JAX one with the numpy BVH
-    builder forced, which the port copies)."""
+    """make_large_scene in both packages, both with the numpy BVH builder
+    forced (the two native libraries' builds differ: the JAX package's is
+    built with -march=native)."""
     orig = jpart.build_bvh
     jpart.build_bvh = lambda tv, leaf=8, force_py=False: build_bvh(
         tv, leaf, force_py=True)
@@ -246,7 +261,8 @@ def large_scenes():
         js = make_large_scene(**LARGE)
     finally:
         jpart.build_bvh = orig
-    return js, scene_from_numpy(make_large_scene_arrays(**LARGE))
+    with port_numpy_builders():
+        return js, scene_from_numpy(make_large_scene_arrays(**LARGE))
 
 
 @pytest.mark.parametrize("case", ["forest", "separate_walk"])

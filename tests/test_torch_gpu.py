@@ -822,3 +822,51 @@ def test_elastic_resume_on_the_card(cuda_scene, tmp_path):
     assert got.taa_color.device.type == "cuda"
     for f in ("taa_color", "illum_hist", "history_len", "moments", "accum_color"):
         assert torch.equal(getattr(got, f), getattr(ref, f)), f
+
+
+def test_native_library_loads(cuda_scene):
+    """The card's machine has g++ (nvcc needs it): the host builders take
+    the native library there, and its BVH is the numpy builder's tree."""
+    from tpuray_torch.io import native
+    from tpuray_torch.scene.host import build_bvh_py
+    assert native.available(), native.build_log
+    tris = np.random.default_rng(0).random((500, 3, 3)).astype(np.float32)
+    got, want = native.build_bvh_native(tris, 8), build_bvh_py(tris, 8)
+    for k in ("first_tri", "tri_count", "skip", "perm"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_viewer_frames_on_the_card(cuda_scene):
+    """Viewer frames on cuda: K1 1, K2 2, K4 1 and K5 5 a frame; a
+    parameter event reaches the next frame (K5 follows
+    num_atrous_iterations; accumulation restarts); the frame after it, with
+    the camera still, runs K4 too (no plain static-camera branch on the
+    card)."""
+    from tpuray_torch.viewer.server import ViewerServer
+    scene, _ = cuda_scene
+    n = 64
+    s = ViewerServer(scene, RenderConfig(width=n, height=n, compact_frac=0.0,
+                                         compact_auto=False), port=0)
+    counts = []
+    for event in (None, {"type": "param", "name": "num_atrous_iterations", "value": 3}, None):
+        if event:
+            s.submit(event)
+        for c in (kt, kr, ka):
+            c.reset_launches()
+        png, stats = s.render_once()
+        counts.append((kt.LAUNCHES["k1"], kt.LAUNCHES["k2"], kr.LAUNCHES["k4"],
+                       ka.LAUNCHES["k5"], stats["frame"]))
+        assert png[:8] == b"\x89PNG\r\n\x1a\n"
+    assert counts == [(1, 2, 1, 5, 1), (1, 2, 1, 3, 1), (1, 2, 1, 3, 2)]
+
+
+def test_train_step_through_the_cli(cuda_scene, tmp_path):
+    """One train step through the CLI on the card (its default device)."""
+    from tpuray_torch.cli.main import main
+    from tpuray_torch.io.image import read_png
+    prefix = str(tmp_path / "t")
+    kt.reset_launches()
+    assert main(["train", "--size", "32", "--steps", "1", "--out-prefix", prefix]) == 0
+    assert kt.LAUNCHES["k1"] >= 2  # the target, the step, the fit
+    img = read_png(prefix + "_fit.png")
+    assert img.shape == (32, 32, 3) and np.isfinite(img).all()

@@ -29,6 +29,7 @@ from tpuray.utils import checkpoint as jckpt
 from tpuray.utils.metrics import FrameMetrics as JFrameMetrics
 
 from tpuray_torch.io import filesystem, hdr, image, obj
+from tpuray_torch.io import native as tnative
 from tpuray_torch.render.frame_state import FrameState
 from tpuray_torch.scene import builder
 from tpuray_torch.scene.procedural import write_test_scene_obj
@@ -387,6 +388,7 @@ def _force_numpy(monkeypatch):
     monkeypatch.setattr(jnative, "env_cache_native", lambda *a: None)
     monkeypatch.setattr(jnative, "read_bmp_native", lambda *a: None)
     monkeypatch.setattr(jnative, "read_hdr_native", lambda *a: None)
+    monkeypatch.setattr(tnative, "get_lib", lambda: None)  # the port's too
 
 
 def _grid_obj(path, n=60):

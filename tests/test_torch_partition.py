@@ -34,6 +34,8 @@ from tpuray_torch.scene.procedural import (
     icosphere, ground_quad, make_large_scene_arrays)
 from tpuray_torch.scene.types import scene_from_numpy, scene_to_numpy
 
+from tests.test_torch_native import port_numpy_builders
+
 torch.set_num_threads(2)
 
 LARGE = dict(n_spheres=6, subdiv=2, max_chunk_tris=512, env_width=32)
@@ -46,7 +48,7 @@ def _numpy_builder(tri_verts, leaf_size=8, force_py=False):
 @pytest.fixture(scope="module")
 def jax_large():
     """tpuray's make_large_scene with the numpy BVH builder forced (the
-    native builder may order ties differently)."""
+    native builder may order ties differently), as the port's below."""
     orig = jpart.build_bvh
     jpart.build_bvh = _numpy_builder
     try:
@@ -57,7 +59,8 @@ def jax_large():
 
 @pytest.fixture(scope="module")
 def large(jax_large):
-    arrays = make_large_scene_arrays(**LARGE)
+    with port_numpy_builders():
+        arrays = make_large_scene_arrays(**LARGE)
     scene = scene_from_numpy(arrays)
     return jax_large, arrays, scene, pack_traversal(scene)
 
@@ -79,7 +82,7 @@ def test_forest_builders_match_jax(max_tris):
     for ours, theirs in ((partition.build_forest_bvh, jpart.build_forest_bvh),
                          (partition.build_forest_bvh_uniform,
                           jpart.build_forest_bvh_uniform)):
-        got = ours(tris, 8, max_tris)
+        got = ours(tris, 8, max_tris, force_py=True)
         ref = theirs(tris, 8, max_tris, force_py=True)
         assert set(got) == set(ref)
         for key in ref:

@@ -17,6 +17,8 @@ from tpuray.scene.config import RenderConfig as JRenderConfig
 
 from tpuray_torch.render import tiling
 from tpuray_torch.scene import host
+
+from tests.test_torch_native import port_numpy_builders
 from tpuray_torch.scene.camera import OrbitCamera
 from tpuray_torch.scene.config import RenderConfig
 from tpuray_torch.scene.procedural import make_test_scene_arrays
@@ -37,10 +39,14 @@ def jax_scene():
 
 
 def test_make_test_scene_matches_jax(jax_scene):
-    ours = make_test_scene_arrays(subdiv=2, env_width=32)
+    """Both packages on their numpy BVH builders (the native builds differ:
+    the JAX package's library is built with -march=native, whose FMAs move
+    the split costs)."""
+    with port_numpy_builders():
+        ours = make_test_scene_arrays(subdiv=2, env_width=32)
     ref = scene_to_numpy(jax_scene)
-    # the JAX scene's cache may come from the native builder; the port's is
-    # env_cache_py's, held to it below
+    # the JAX scene's cache comes from the native builder; the port's is
+    # env_cache_py's here, held to it below
     for key, want in ref.items():
         if key in ("envmap.cache", "bvh.chunk_nodes", "bvh.chunk_tris"):
             continue

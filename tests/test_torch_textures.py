@@ -40,6 +40,8 @@ from tpuray_torch.scene.camera import OrbitCamera
 from tpuray_torch.scene.config import RenderConfig
 from tpuray_torch.scene.procedural import write_test_scene_obj
 
+from tests.test_torch_native import port_numpy_builders
+
 torch.set_num_threads(2)
 
 TEX_RES = 32
@@ -49,9 +51,9 @@ SCALE = (2.0, 2.0, 2.0)  # the sphere and ground cover ~10% of the view
 
 @contextlib.contextmanager
 def numpy_builders():
-    """tpuray's build_scene with its numpy OBJ parser, BVH builder and env
-    cache, the ones the port copies (the native library orders BVH ties
-    differently)."""
+    """Both packages' build_scene with their numpy OBJ parser, BVH builder
+    and env cache: the two native libraries' builds differ (the JAX
+    package's is built with -march=native)."""
     saved = (jbuilder.build_bvh, jpart.build_bvh, jnative.parse_obj_native,
              jnative.env_cache_native)
 
@@ -61,7 +63,8 @@ def numpy_builders():
     jbuilder.build_bvh = jpart.build_bvh = bvh_py
     jnative.parse_obj_native = jnative.env_cache_native = lambda *a: None
     try:
-        yield
+        with port_numpy_builders():
+            yield
     finally:
         (jbuilder.build_bvh, jpart.build_bvh, jnative.parse_obj_native,
          jnative.env_cache_native) = saved
@@ -77,9 +80,9 @@ def scenes(tmp_path_factory):
         js = jbuilder.build_scene(
             [jbuilder.ObjectSpec(path=path, material=dict(builder.DEFAULT_MATERIAL),
                                  scale=SCALE)], **kw)
-    ts = builder.build_scene(
-        [builder.ObjectSpec(path=path, material=dict(builder.DEFAULT_MATERIAL),
-                            scale=SCALE)], **kw)
+        ts = builder.build_scene(
+            [builder.ObjectSpec(path=path, material=dict(builder.DEFAULT_MATERIAL),
+                                scale=SCALE)], **kw)
     return js, ts
 
 

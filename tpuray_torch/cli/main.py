@@ -2,17 +2,19 @@
 
 Headless progressive rendering to PNG with debug-view selection and
 FrameState checkpoints, a supervised render loop that restores and replays
-after a device fault (--elastic), and an orbiting-camera PNG sequence, on
-the CUDA card by default (--device cpu renders on the CPU).
+after a device fault (--elastic), an orbiting-camera PNG sequence, the
+differentiable material recovery demo and the browser viewer, on the CUDA
+card by default (--device cpu runs on the CPU).
 
 Examples:
   python -m tpuray_torch.cli.main render --frames 8 --out out.png
   python -m tpuray_torch.cli.main render --scene reference --asset-root DIR
   python -m tpuray_torch.cli.main render --elastic ck.npz --checkpoint-every 4
   python -m tpuray_torch.cli.main animate --frames 24 --every 4
+  python -m tpuray_torch.cli.main train --steps 20 --out-prefix fit
+  python -m tpuray_torch.cli.main view --port 8008
 
-`train`, `view` and `bench` raise NotImplementedError naming their
-ROADMAP.md item.
+`bench` raises NotImplementedError naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -105,10 +107,9 @@ def _render_elastic(r, snap, args, metrics) -> None:
     frames) and the static-camera branch from the state's view matrix, so a
     resumed run is bit for bit an uninterrupted one. Each frame index is
     recorded once, however often it is replayed."""
-    import numpy as np
     import torch
 
-    from tpuray_torch.render.renderer import render_frame
+    from tpuray_torch.render.renderer import render_frame, still_camera
     from tpuray_torch.utils.elastic import run_elastic
 
     view_proj = snap.view_proj.numpy()
@@ -118,8 +119,8 @@ def _render_elastic(r, snap, args, metrics) -> None:
     @torch.no_grad()
     def frame_fn(state, frame):
         t0 = time.perf_counter()
-        static = bool(state.frame_idx > 0 and np.allclose(
-            view_proj, state.prev_view_proj.cpu().numpy()))
+        static = still_camera(r.device, state.frame_idx, view_proj,
+                              state.prev_view_proj.cpu().numpy())
         state, out = render_frame(r.scene, camera, state, r.cfg, r.cfg.height,
                                   r.cfg.width, tracer=r.tracer, tables=r.tables,
                                   pk=r.pk, static_camera=static)
@@ -163,6 +164,59 @@ def cmd_animate(args) -> int:
     return 0
 
 
+def cmd_train(args) -> int:
+    """Differentiable material recovery: render the scene, perturb every
+    material's base_color (* 0.4 + 0.3), then take --steps Adam steps at
+    --lr on every material and light leaf towards the first image; write
+    the target and the fit as PNGs."""
+    import torch
+
+    from tpuray_torch.io.image import write_png
+    from tpuray_torch.render.renderer import tonemap
+    from tpuray_torch.scene.camera import OrbitCamera
+    from tpuray_torch.scene.config import RenderConfig
+    from tpuray_torch.train.optimize import make_train_step, render_flat, split_trainable
+
+    cfg = RenderConfig(width=args.size, height=args.size, max_tracing_depth=args.depth)
+    scene = _build_scene(args.scene, False)
+    cam = OrbitCamera(width=args.size, height=args.size).snapshot()
+
+    params, rebuild = split_trainable(scene, device=args.device)
+    with torch.no_grad():
+        target = render_flat(rebuild(params), cam, cfg, args.size, args.size, 0)
+        base = params["materials"].base_color
+        params["materials"] = params["materials"].replace(
+            base_color=(base * 0.4 + 0.3).requires_grad_(True))
+    init, step = make_train_step(rebuild, cfg, args.size, args.size,
+                                 lambda leaves: torch.optim.Adam(leaves, lr=args.lr))
+    state = init(params)
+    loss = None
+    for i in range(args.steps):
+        state, loss = step(state, target, cam, 0)
+        if i % max(1, args.steps // 10) == 0:
+            print(f"step {i}: loss {float(loss):.6f}", file=sys.stderr)
+    with torch.no_grad():
+        final = render_flat(rebuild(state.params), cam, cfg, args.size, args.size, 0)
+    write_png(f"{args.out_prefix}_target.png", tonemap(target).cpu().numpy())
+    write_png(f"{args.out_prefix}_fit.png", tonemap(final).cpu().numpy())
+    print(f"final loss {float(loss):.6f}", file=sys.stderr)
+    return 0
+
+
+def cmd_view(args) -> int:
+    """Serve the browser viewer until Ctrl-C; prints its URL (the port
+    resolved, so --port 0 takes a free one)."""
+    from tpuray_torch.viewer.server import ViewerServer
+
+    cfg = _config(args, reference_quirks=args.reference_quirks)
+    scene = _build_scene(args.scene, args.reference_quirks)
+    server = ViewerServer(scene, cfg, host=args.host, port=args.port,
+                          device=args.device)
+    server.start()
+    server.serve_forever()
+    return 0
+
+
 def _not_ported(what: str, item: str):
     def cmd(args) -> int:
         raise NotImplementedError(f"{what} is ROADMAP.md item {item}")
@@ -201,15 +255,15 @@ def main(argv=None) -> int:
     device_option(pr)
     pr.set_defaults(fn=cmd_render)
 
-    pt = sub.add_parser("train", help="differentiable material recovery demo "
-                        "(not ported)")
+    pt = sub.add_parser("train", help="differentiable material recovery demo")
     pt.add_argument("--scene", default="procedural", choices=_SCENES)
     pt.add_argument("--steps", type=int, default=20)
     pt.add_argument("--size", type=int, default=64)
     pt.add_argument("--depth", type=int, default=1)
     pt.add_argument("--lr", type=float, default=0.05)
     pt.add_argument("--out-prefix", default="train")
-    pt.set_defaults(fn=_not_ported("train (with the projected Adam step)", "15"))
+    device_option(pt)
+    pt.set_defaults(fn=cmd_train)
 
     pa = sub.add_parser("animate", help="orbiting-camera PNG sequence")
     pa.add_argument("--scene", default="procedural", choices=_SCENES)
@@ -226,14 +280,15 @@ def main(argv=None) -> int:
     device_option(pa)
     pa.set_defaults(fn=cmd_animate)
 
-    pv = sub.add_parser("view", help="interactive browser viewer (not ported)")
+    pv = sub.add_parser("view", help="interactive browser viewer")
     pv.add_argument("--scene", default="procedural", choices=_SCENES)
     pv.add_argument("--size", type=int, default=400)
     pv.add_argument("--host", default="127.0.0.1")
     pv.add_argument("--port", type=int, default=8008)
     pv.add_argument("--config", default=None)
     pv.add_argument("--reference-quirks", action="store_true")
-    pv.set_defaults(fn=_not_ported("view (viewer/)", "15"))
+    device_option(pv)
+    pv.set_defaults(fn=cmd_view)
 
     pb = sub.add_parser("bench", help="run the benchmark (not ported)")
     pb.set_defaults(fn=_not_ported("bench (the port's bench)", "3"))

@@ -10,7 +10,9 @@ camera's reproject + variance through K4 and the a-trous chain through K5
 (kernels/reproject.py, kernels/atrous.py; on CPU tensors those wrappers
 run their plain versions), False takes the plain PyTorch stages
 (plain_svgf). The static-camera branch reprojects with the plain static
-specialisation, as the JAX package does, and still runs K5.
+specialisation, as the JAX package does off its own device, and still
+runs K5; on the card a still camera is a moving one with zero motion
+(render/renderer.py:still_camera), so the branch takes CPU tensors only.
 
 plain_svgf is also the sharded frame's denoiser (dist/frame.py): its
 `rows` say which rows of the image the stages see. The default is the
@@ -156,6 +158,9 @@ def svgf_pipeline(color: Tensor, emission: Tensor, albedo: Tensor,
         prev_moments=state.moments, prev_history_len=state.history_len)
     inputs = {k: v.contiguous() for k, v in inputs.items()}
     if static_camera:
+        if color.is_cuda:
+            raise ValueError("svgf_pipeline: the static-camera branch is plain; on the "
+                             "card a still camera takes K4 with zero motion")
         fused = kreproject.reproject_variance_plain(cfg, static_camera=True, **inputs)
     else:
         fused = kreproject.reproject_variance_fused(cfg, **inputs)

@@ -156,8 +156,7 @@ def trace_paths_mis(pk, tables, tracer, orig: Tensor, d: Tensor, px: Tensor,
         orig = hit.point
         d = torch.where(alive[..., None], l_new, d)
 
-    light = torch.clamp(light, 0.0, cfg.clamp_threshold)
-    light = torch.where(torch.isnan(light), 0.0, light)
+    light = pt.clamp_light(light, cfg.clamp_threshold)
     return pt.PTOutput(color=light, emission=emission0, albedo=albedo0,
                        first_hit_t=t0, first_hit_valid=valid0,
                        first_hit_point=point0, first_hit_normal=normal0)

@@ -107,6 +107,21 @@ def _abs(x: Tensor) -> Tensor:
     return torch.where(x >= 0.0, x, -x)
 
 
+_ZERO = torch.tensor(0.0)  # a CPU scalar: usable beside tensors on any device
+
+
+def clamp_light(light: Tensor, threshold: float) -> Tensor:
+    """The final clamp, clip(light, 0, threshold), then the NaN scrub. With
+    jnp.clip's gradient at the lower bound: half on a lane whose light is
+    exactly 0 (a tie of maximum), where torch.clamp passes all of it."""
+    if disney.records_grad(light):
+        light = torch.minimum(torch.maximum(light, _ZERO),
+                              torch.tensor(float(threshold)))
+    else:
+        light = torch.clamp(light, 0.0, threshold)
+    return torch.where(torch.isnan(light), 0.0, light)
+
+
 class Hit(NamedTuple):
     """What shading reads of a hit. (The JAX Hit's geometric normal has no
     reader.)"""
@@ -577,9 +592,7 @@ def trace_paths(scene, orig: Tensor, d: Tensor, px: Tensor, py: Tensor,
     env_rad = env.env_radiance(pk.env_image, out.miss_dir)
     light = out.light + torch.where(out.miss_any[..., None],
                                     env_rad * out.miss_reduction, 0.0)
-    # clamp + NaN scrub
-    light = torch.clamp(light, 0.0, cfg.clamp_threshold)
-    light = torch.where(torch.isnan(light), 0.0, light)
+    light = clamp_light(light, cfg.clamp_threshold)
 
     return PTOutput(color=light, emission=out.emission0, albedo=out.albedo0,
                     first_hit_t=t0, first_hit_valid=out.valid0,

@@ -1,5 +1,22 @@
 """Radiance RGBE (.hdr) read and write (counterpart of tpuray/io/hdr.py):
-read_hdr(path) -> (H, W, 3) float32, write_hdr(path, rgb), the numpy
-versions of io/fallback.py."""
-from tpuray_torch.io.fallback import read_hdr_py as read_hdr  # noqa: F401
-from tpuray_torch.io.fallback import write_hdr_py as write_hdr  # noqa: F401
+the native library when it loads, else the numpy versions of
+io/fallback.py."""
+from __future__ import annotations
+
+import numpy as np
+
+from tpuray_torch.io import native
+from tpuray_torch.io.fallback import read_hdr_py, write_hdr_py
+
+
+def read_hdr(path: str) -> np.ndarray:
+    """-> (H, W, 3) float32 linear RGB."""
+    out = native.read_hdr_native(path)
+    if out is None:
+        out = read_hdr_py(path)
+    return out
+
+
+def write_hdr(path: str, rgb: np.ndarray) -> None:
+    if not native.write_hdr_native(path, np.asarray(rgb, np.float32)):
+        write_hdr_py(path, rgb)

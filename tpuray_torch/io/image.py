@@ -1,8 +1,8 @@
 """Image decode and encode: BMP, PNG, TGA, Radiance HDR (and JPEG through
 PIL where it is installed) in; BMP and PNG out. Counterpart of
-tpuray/io/image.py, numpy and the standard library only: read_png always
-takes the stdlib decoder, which the JAX package keeps as its fallback
-behind PIL.
+tpuray/io/image.py: read_bmp takes the native library when it loads, else
+numpy; read_png always takes the stdlib decoder, which the JAX package
+keeps as its fallback behind PIL.
 """
 from __future__ import annotations
 
@@ -11,8 +11,17 @@ import zlib
 
 import numpy as np
 
-from tpuray_torch.io.fallback import read_bmp_py as read_bmp  # noqa: F401
+from tpuray_torch.io import native
+from tpuray_torch.io.fallback import read_bmp_py
 from tpuray_torch.io.fallback import write_bmp_py as write_bmp  # noqa: F401
+
+
+def read_bmp(path: str) -> np.ndarray:
+    """-> (H, W, 4) uint8 RGBA, top row first: native, else numpy."""
+    out = native.read_bmp_native(path)
+    if out is None:
+        out = read_bmp_py(path)
+    return out
 
 
 def encode_png(img: np.ndarray, compress_level: int = 6) -> bytes:

@@ -1,5 +1,5 @@
-"""OBJ loading: parse, then process the geometry (counterpart of
-tpuray/io/obj.py, numpy only).
+"""OBJ loading: parse (native, else numpy), then process the geometry
+(counterpart of tpuray/io/obj.py).
 
 The processing is the original loader's pipeline:
   1. normalise the model into a unit box (divide by the largest AABB extent);
@@ -16,7 +16,17 @@ import math
 
 import numpy as np
 
-from tpuray_torch.io.fallback import parse_obj_py as parse_obj
+from tpuray_torch.io import native
+from tpuray_torch.io.fallback import parse_obj_py
+
+
+def parse_obj(path: str):
+    """-> (positions, texcoords, face_v, face_vt): io/native.py's parser
+    when the library loads, else the numpy one."""
+    out = native.parse_obj_native(path)
+    if out is None:
+        out = parse_obj_py(path)
+    return out
 
 
 def transform_matrix(rotate_deg=(0, 0, 0), translate=(0, 0, 0), scale=(1, 1, 1)) -> np.ndarray:

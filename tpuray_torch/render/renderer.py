@@ -67,6 +67,17 @@ def pixel_rays(camera: Camera, height: int, width: int, xx: Tensor, yy: Tensor
     return orig, d, xx, height - 1 - yy
 
 
+def still_camera(device: torch.device, frame_idx: int, view_proj: np.ndarray,
+                 prev_view_proj: np.ndarray) -> bool:
+    """Whether a frame takes the denoiser's static-camera specialisation:
+    the view unchanged since an earlier frame, off the card only, as tpuray
+    takes it only off its own device (tpuray/render/renderer.py:186-196).
+    Its semantics are the moving path's with zero motion, so on the card a
+    still frame runs K4 as a moving one does."""
+    return bool(device.type != "cuda" and frame_idx > 0
+                and np.allclose(view_proj, prev_view_proj))
+
+
 def render_frame(scene, camera: Camera, state: FrameState, cfg: RenderConfig,
                  height: int, width: int,
                  tracer: Tracer = KERNELS,
@@ -77,7 +88,7 @@ def render_frame(scene, camera: Camera, state: FrameState, cfg: RenderConfig,
     """Render one frame and advance the temporal state.
 
     static_camera=True takes the denoiser's static-camera specialisation
-    (motion == 0); the Renderer selects it when the view is unchanged.
+    (motion == 0) off the card; the Renderer selects it by still_camera.
     Differentiable with enable_svgf=False, or with pallas_denoise=False
     (K4 and K5 are forward-only and raise under grad)."""
     frame = state.frame_idx
@@ -201,13 +212,17 @@ class Renderer:
     earlier and sets the budget of the frames after it to the smallest
     bucket that holds the coverage with 30% headroom, or to no compaction
     (tpuray/render/renderer.py:145-183). frame_cfg is the config the next
-    frame renders with.
+    frame renders with: cfg with the current bucket. Assigning cfg (the
+    viewer's sliders do) takes effect at the next step() and keeps the
+    bucket; the JAX package keeps rendering its old config under
+    compact_auto until the bucket next changes (ROADMAP.md section 3).
 
     device defaults to "cuda"; without a CUDA device the Renderer raises
     unless it is given device="cpu". Cameras may be built anywhere: step()
     moves them to the Renderer's device, and chooses the static-camera
-    branch from a host copy of the view matrix (a camera built on the host,
-    as OrbitCamera.snapshot() does by default, costs no device read)."""
+    branch (still_camera) from a host copy of the view matrix (a camera
+    built on the host, as OrbitCamera.snapshot() does by default, costs no
+    device read)."""
 
     _BUCKETS = (0.125, 0.25, 0.5)
     _HEADROOM = 1.3
@@ -220,25 +235,42 @@ class Renderer:
             raise RuntimeError(
                 "Renderer: no CUDA device is available; pass device='cpu' "
                 "to render on the CPU")
-        check_config(cfg)
-        if cfg.enable_svgf:
-            gather_mode(cfg)
-        scene = scene.to(device)
-        if cfg.enable_aniso == "auto":
-            cfg = dataclasses.replace(cfg, enable_aniso=resolve_aniso(scene, cfg))
-        self.scene = scene
+        self.scene = scene.to(device)
+        self._bucket = cfg.compact_frac  # compact_auto's current budget
         self.cfg = cfg
-        self.device = scene.triangles.p0.device
+        self.device = self.scene.triangles.p0.device
         self.tracer = tracer
         with torch.no_grad():  # serving keeps no graph, even of trainable tables
-            self.tables = pack_traversal(scene)
-            self.pk = pack_scene_tables(scene)
+            self.tables = pack_traversal(self.scene)
+            self.pk = pack_scene_tables(self.scene)
         self.state = FrameState.initial(cfg.height, cfg.width, self.device)
         self._prev_view_proj = np.eye(4, dtype=np.float32)  # host copy
         self.last_outputs: FrameOutputs | None = None
-        self.frame_cfg = cfg
         self._steps = 0
         self._pending_cov: LaggedScalar | None = None
+
+    @property
+    def cfg(self) -> RenderConfig:
+        return self._cfg
+
+    @cfg.setter
+    def cfg(self, cfg: RenderConfig) -> None:
+        """Check cfg and set it, with enable_aniso="auto" resolved on the
+        scene; the next frame renders with it (frame_cfg)."""
+        check_config(cfg)
+        if cfg.enable_svgf:
+            gather_mode(cfg)
+        if cfg.enable_aniso == "auto":
+            cfg = dataclasses.replace(cfg, enable_aniso=resolve_aniso(self.scene, cfg))
+        self._cfg = cfg
+
+    @property
+    def frame_cfg(self) -> RenderConfig:
+        """The config of the next frame: cfg, in the current compaction
+        bucket when cfg.compact_auto is on."""
+        if self._cfg.compact_auto:
+            return dataclasses.replace(self._cfg, compact_frac=self._bucket)
+        return self._cfg
 
     def reset(self) -> None:
         self.state = self.state.reset_accumulation()
@@ -249,17 +281,15 @@ class Renderer:
         self._prev_view_proj = state.prev_view_proj.detach().cpu().numpy()
 
     def _tune_compaction(self, out: FrameOutputs) -> None:
-        """Every _TUNE_EVERY frames: set frame_cfg's bucket from the coverage
-        copied a period ago, and copy this frame's. A stale bucket costs
-        speed only: the residual pass keeps overflowing frames exact."""
+        """Every _TUNE_EVERY frames: set the bucket from the coverage copied
+        a period ago, and copy this frame's. A stale bucket costs speed
+        only: the residual pass keeps overflowing frames exact."""
         self._steps += 1
         if self._steps % self._TUNE_EVERY:
             return
         if self._pending_cov is not None:
             want = self._pending_cov.read() * self._HEADROOM
-            bucket = next((b for b in self._BUCKETS if b >= want), 0.0)
-            if bucket != self.frame_cfg.compact_frac:
-                self.frame_cfg = dataclasses.replace(self.cfg, compact_frac=bucket)
+            self._bucket = next((b for b in self._BUCKETS if b >= want), 0.0)
         self._pending_cov = LaggedScalar(out.coverage)
 
     @torch.no_grad()
@@ -267,8 +297,8 @@ class Renderer:
         """Render the next frame. Serving builds no autograd graph, whatever
         the scene's tensors require (render_frame differentiates)."""
         view_proj = camera.view_proj.detach().cpu().numpy()
-        static = bool(self.state.frame_idx > 0
-                      and np.allclose(view_proj, self._prev_view_proj))
+        static = still_camera(self.device, self.state.frame_idx, view_proj,
+                              self._prev_view_proj)
         self.state, out = render_frame(
             self.scene, camera.to(self.device), self.state, self.frame_cfg,
             self.cfg.height, self.cfg.width, tracer=self.tracer,

@@ -85,6 +85,31 @@ def env_pdf(cache: Tensor, d: Tensor) -> Tensor:
     return pdf * convert
 
 
+def build_env_cache(image: Tensor) -> Tensor:
+    """The (H, W, 3) inverse-CDF cache (sample_x, sample_y, pdf) of an
+    (H, W, 3) env map, built on the image's device in its dtype (a scene's
+    is float32) by cumsum and searchsorted: the counterpart of
+    build_env_cache_jnp, for an env map that is itself optimised. The host
+    builders (scene/builder.py's make_env_cache) sum in float64."""
+    h, w = image.shape[0], image.shape[1]
+    dev = image.device
+    lum = 0.2 * image[..., 0] + 0.7 * image[..., 1] + 0.1 * image[..., 2]
+    pdf = lum / torch.sum(lum)
+    pdf_x = torch.sum(pdf, dim=0)
+    cdf_x = torch.cumsum(pdf_x, dim=0)
+    denom = torch.where(pdf_x > 0, pdf_x, 1.0)
+    cdf_y = torch.cumsum(pdf / denom[None, :], dim=0)  # (h, w)
+
+    xi1 = torch.arange(h, dtype=torch.float32, device=dev) / h
+    x = torch.clamp(torch.searchsorted(cdf_x, xi1, side="left"), 0, w - 1)  # (h,)
+    xi2 = torch.arange(w, dtype=torch.float32, device=dev) / w
+    cols = cdf_y[:, x].T.contiguous()  # row i: the conditional CDF of column x[i]
+    y = torch.searchsorted(cols, xi2.expand(h, w).contiguous(), side="left")
+    y = torch.clamp(y, 0, h - 1)  # (h, w)
+    return torch.stack([(x.to(torch.float32) / w)[:, None].expand(h, w),
+                        y.to(torch.float32) / h, pdf], dim=-1)
+
+
 def pack_env_nee_table(image: Tensor, cache: Tensor) -> Tensor:
     """(H, W, 8) rows [Lx, Ly, Lz, Rr, Rg, Rb, pdf_omega, 0]: the sampled
     direction of each cache texel with its radiance and pdf."""

@@ -1,5 +1,7 @@
 """Scene assembly: OBJ files, materials, lights, textures and an env map ->
-Scene (counterpart of tpuray/scene/builder.py, numpy on the host).
+Scene (counterpart of tpuray/scene/builder.py, on the host; the OBJ
+parser, the BVH builder and the env cache take the native library when it
+loads, else their numpy versions, as the JAX package's do).
 
 build_scene builds the flat arrays of scene_from_numpy with the JAX
 package's steps and choices, and puts them on a device. The default scene is the original renderer's startup scene: clock.obj with a
@@ -14,12 +16,13 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from tpuray_torch.accel.bvh import build_bvh
+from tpuray_torch.io import native
 from tpuray_torch.io.filesystem import resolve
 from tpuray_torch.io.hdr import read_hdr
 from tpuray_torch.io.image import read_image
 from tpuray_torch.io.obj import load_obj, transform_matrix
-from tpuray_torch.scene.host import (
-    build_bvh_py, env_cache_py, material_table_arrays, procedural_room_envmap)
+from tpuray_torch.scene.host import env_cache_py, material_table_arrays, procedural_room_envmap
 from tpuray_torch.scene.partition import apply_perm_padded, build_forest_bvh_uniform
 from tpuray_torch.scene.types import MaterialTable, Scene, scene_from_numpy
 
@@ -50,6 +53,14 @@ class ObjectSpec:
     # texture layers keyed albedo / metallic / normal / roughness: (H, W, 3)
     # float arrays, or image file paths (any io.image.read_image format)
     textures: dict = dataclasses.field(default_factory=dict)
+
+
+def make_env_cache(image: np.ndarray) -> np.ndarray:
+    """The env map's (sample_x, sample_y, pdf) cache: native, else numpy."""
+    cache = native.env_cache_native(image)
+    if cache is None:
+        cache = env_cache_py(image)
+    return cache
 
 
 def make_material_table(materials: Sequence[dict], device="cpu") -> MaterialTable:
@@ -135,7 +146,7 @@ def build_scene(objects: Sequence[ObjectSpec], point_lights: Sequence[tuple] = (
 
     arrays = {}
     # the single tree first: the rule is on its real node count
-    bvh = build_bvh_py(pos, leaf_size)
+    bvh = build_bvh(pos, leaf_size)
     perm = bvh["perm"]
     if not fits_single_tree(len(bvh["skip"]), len(pos)):
         bvh = build_forest_bvh_uniform(pos, leaf_size, max_chunk_tris)
@@ -166,7 +177,7 @@ def build_scene(objects: Sequence[ObjectSpec], point_lights: Sequence[tuple] = (
     else:
         env_img = np.asarray(envmap, np.float32)
     arrays["envmap.image"] = env_img
-    arrays["envmap.cache"] = env_cache_py(env_img)
+    arrays["envmap.cache"] = make_env_cache(env_img)
     if tex_layers:
         arrays["textures.data"] = np.stack(tex_layers)
     return scene_from_numpy(arrays, device)

@@ -5,8 +5,10 @@ Copies of tpuray/io/fallback.py:build_bvh_py and :env_cache_py,
 tpuray/scene/builder.py:procedural_room_envmap and the row defaults of
 :make_material_table. The GPU machine has no jax, and any import of the
 JAX package pulls jax in (tpuray/__init__.py), so the port carries these
-copies; tests/test_torch_scene.py holds each equal to its original.
-ROADMAP.md item 16 (a jax-free host module inside tpuray/) removes them.
+copies; tests/test_torch_scene.py holds each equal to its original. The
+BVH and env-cache builders are the fallback of the native library
+(io/native.py, through accel/bvh.py and scene/builder.py:make_env_cache)
+and its tests' oracle.
 """
 from __future__ import annotations
 

@@ -1,9 +1,9 @@
 """Spatial scene partitioning: a forest of chunk BVHs for large scenes.
 
 A numpy copy of tpuray/scene/partition.py (the port cannot import the JAX
-package, whose __init__ pulls in jax), built with scene/host.py's
-build_bvh_py; tests/test_torch_partition.py holds it equal to the
-original. The uniform layout is what kernels/trace_chunked.py (K6) walks:
+package, whose __init__ pulls in jax), whose chunks accel/bvh.py builds
+(native, or numpy with force_py); tests/test_torch_partition.py holds it
+equal to the original. The uniform layout is what kernels/trace_chunked.py (K6) walks:
 
   - chunk c owns node rows [c*CN, (c+1)*CN) and triangle rows
     [c*CT, (c+1)*CT); shorter chunks are padded;
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from tpuray_torch.scene.host import build_bvh_py
+from tpuray_torch.accel.bvh import build_bvh
 
 
 def partition_triangles(tri_verts: np.ndarray, max_tris: int) -> list[np.ndarray]:
@@ -41,8 +41,8 @@ def partition_triangles(tri_verts: np.ndarray, max_tris: int) -> list[np.ndarray
 
 
 def build_forest_bvh(tri_verts: np.ndarray, leaf_size: int = 8,
-                     max_chunk_tris: int = 8192) -> dict:
-    """Packed (unpadded) forest: build_bvh_py's arrays plus chunk_node_base
+                     max_chunk_tris: int = 8192, force_py: bool = False) -> dict:
+    """Packed (unpadded) forest: build_bvh's arrays plus chunk_node_base
     and chunk_tri_base (C+1,) int32; first_tri and skip are global."""
     tri_verts = np.ascontiguousarray(tri_verts, np.float32)
     parts = partition_triangles(tri_verts, max_chunk_tris)
@@ -51,7 +51,7 @@ def build_forest_bvh(tri_verts: np.ndarray, leaf_size: int = 8,
     node_base = [0]
     tri_base = [0]
     for idx in parts:
-        b = build_bvh_py(tri_verts[idx], leaf_size)
+        b = build_bvh(tri_verts[idx], leaf_size, force_py=force_py)
         nb, tb = node_base[-1], tri_base[-1]
         mins.append(b["aabb_min"])
         maxs.append(b["aabb_max"])
@@ -75,7 +75,8 @@ def build_forest_bvh(tri_verts: np.ndarray, leaf_size: int = 8,
 
 
 def build_forest_bvh_uniform(tri_verts: np.ndarray, leaf_size: int = 8,
-                             max_chunk_tris: int = 8192) -> dict:
+                             max_chunk_tris: int = 8192,
+                             force_py: bool = False) -> dict:
     """Uniform (padded) forest layout.
 
     Padding nodes have an inverted AABB (min +FLT_MAX, max -FLT_MAX) and
@@ -90,7 +91,8 @@ def build_forest_bvh_uniform(tri_verts: np.ndarray, leaf_size: int = 8,
     global indices into the padded arrays."""
     tri_verts = np.ascontiguousarray(tri_verts, np.float32)
     parts = partition_triangles(tri_verts, max_chunk_tris)
-    builds = [build_bvh_py(tri_verts[idx], leaf_size) for idx in parts]
+    builds = [build_bvh(tri_verts[idx], leaf_size, force_py=force_py)
+              for idx in parts]
 
     def up128(x: int) -> int:
         return (x + 127) // 128 * 128

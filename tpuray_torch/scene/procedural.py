@@ -1,16 +1,18 @@
 """Procedural test geometry — scenes with no file dependencies.
 
 Counterpart of tpuray/scene/procedural.py (icosphere, ground_quad,
-make_test_scene, make_large_scene), built with the numpy host code of
-scene/host.py and scene/partition.py.
+make_test_scene, make_large_scene), built as the JAX package builds them:
+the BVH by accel/bvh.py and the env cache by scene/builder.py's
+make_env_cache, native first.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from tpuray_torch.accel.bvh import build_bvh
 from tpuray_torch.io.obj import write_obj
-from tpuray_torch.scene.host import (
-    build_bvh_py, env_cache_py, material_table_arrays, procedural_room_envmap)
+from tpuray_torch.scene.builder import make_env_cache
+from tpuray_torch.scene.host import material_table_arrays, procedural_room_envmap
 from tpuray_torch.scene.partition import apply_perm_padded, build_forest_bvh_uniform
 from tpuray_torch.scene.types import Scene, scene_from_numpy
 
@@ -72,7 +74,7 @@ def make_test_scene_arrays(subdiv: int = 2, with_lights: bool = True,
     mat_id = np.concatenate([
         np.zeros(len(sphere), np.int32), np.ones(len(ground), np.int32)])
 
-    bvh = build_bvh_py(tris, leaf_size)
+    bvh = build_bvh(tris, leaf_size)
     perm = bvh["perm"]
     tris = tris[perm]
     mat_id = mat_id[perm]
@@ -113,7 +115,7 @@ def make_test_scene_arrays(subdiv: int = 2, with_lights: bool = True,
         arrays["lights.radiance"] = np.zeros((0, 3), np.float32)
     env_img = procedural_room_envmap(env_width)
     arrays["envmap.image"] = env_img
-    arrays["envmap.cache"] = env_cache_py(env_img)
+    arrays["envmap.cache"] = make_env_cache(env_img)
     return arrays
 
 
@@ -207,7 +209,7 @@ def make_large_scene_arrays(n_spheres: int = 25, subdiv: int = 3,
     arrays["lights.radiance"] = np.asarray([[20.0, 19.0, 17.0]], np.float32)
     env_img = procedural_room_envmap(env_width)
     arrays["envmap.image"] = env_img
-    arrays["envmap.cache"] = env_cache_py(env_img)
+    arrays["envmap.cache"] = make_env_cache(env_img)
     return arrays
 
 
