@@ -60,11 +60,13 @@ instructions in its SASS (cuobjdump -sass), then:
      bit-exact against its plain version, within 2^-16 relative of
      table[idx] (the library yardstick); K7 and table[idx] both timed as
      device work (kernel_ms);
- 14. the JAX package's six gradient checks (bench.py:307-434) through
-     render_frame with SVGF off, 128x128, depth 2: central FD against AD
-     for base_color, specular, sheen and light_radiance (relative error
-     < 0.05), light_pos_interior (order only, ratio in (0.3, 3)) and the
-     roughness AD sanity (finite, |g| > 1e-10);
+ 14. the JAX package's six gradient checks (bench.py:307-434) through the
+     port's bench (bench.gradcheck_lines): render_frame with SVGF off,
+     128x128, depth 2, compaction on (the residual pass runs: K1 1, K2 2
+     or 4 a render): central FD against AD for base_color, specular,
+     sheen and light_radiance (relative error < 0.05), light_pos_interior
+     (order only, ratio in (0.3, 3)) and the roughness AD sanity (finite,
+     |g| > 1e-10);
  15. the trainer (cli/main.py:cmd_train's recovery) at 800x800, depth 2:
      the target from render_flat, base_color * 0.4 + 0.3, then 5
      make_train_step steps (every material and light field differentiated,
@@ -152,17 +154,39 @@ instructions in its SASS (cuobjdump -sass), then:
      centroids order differently counted); set-up seconds native against
      numpy for the 20k file scene and the 131k forest; K1 and K2 on a
      moving 800x800 frame of the native-built 5k file scene, t bit-equal to
+     their plain versions;
+ 22. `python -m tpuray_torch.cli.main bench` as a subprocess with
+     BENCH_FULL=1 (tpuray_torch/bench.py): exit 0, one stdout line (the
+     headline, trace_rays_per_second), every stderr JSON line parses,
+     every metric of bench.py present without an error, every gradient
+     check passed, bench_total_s last, and each metric's launches as its
+     runs must make them (K1 121 for the headline, K3 25, K6 25 for each
+     forest, the SVGF chain K4 16 and K5 80; the frames K1, K2, K4 and K5,
+     the gradient checks K1 and K2); then the bench's own inputs rebuilt
+     from its functions: K1 on its primaries, K3 on its incoherent rays
+     and K6 on its primaries through phases 8's and 9's 131k and 524k
+     forests, each against its plain version and timed as device work
+     beside the bench's rate a call (host clock); on the 1080p chain's
+     random inputs K4 and each K5 iteration against their plain versions
+     and the chain against the plain denoiser, its device time beside its
+     ms a call, each stage's device time (K4, K5, modulate, TAA), and one
+     call under torch.profiler queued ahead of the device (the kernels' own
+     time and span against the events' span, the gaps between kernels,
+     memcpy/memset and host syncs). Phase 14 also holds the K1 and K2
+     calls of one frame at the gradient checks' 128x128 and config against
      their plain versions.
 Any failed check raises (non-zero exit). The last lines are the kernels'
 JSON line (launches: the sum over every path run above, each run counted
-from 0 just before it, the sharded paths of phase 18 and the viewer's and
-train's of phases 19 and 20 included; errors,
+from 0 just before it, the sharded paths of phase 18, the viewer's and
+train's of phases 19 and 20, the gradient checks of phase 14 and the
+bench's runs of phase 22 included; errors,
 times and bounds from phases 1-4, 8, 11 and 13), the card's name and power limit, then {"ok": true, "device": {...}}.
 Needs no network and no jax. Exits non-zero without a CUDA device.
 """
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -174,19 +198,23 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
-from tpuray_torch.denoise.svgf import svgf_pipeline
+from tpuray_torch.denoise.modulate import modulate
+from tpuray_torch.denoise.svgf import reproject_inputs, svgf_pipeline
+from tpuray_torch.denoise.taa import taa
 from tpuray_torch.dist import multihost
 from tpuray_torch.dist.frame import render_frame_sharded, shard_state
 from tpuray_torch.dist.sharding import gather_rows, render_tiled
 from tpuray_torch.integrator.gather_tables import pack_scene_tables
 from tpuray_torch.integrator import path_tracer as pt
 from tpuray_torch.integrator.intersect import INF
+from tpuray_torch import bench
 from tpuray_torch.kernels import atrous as ka
 from tpuray_torch.kernels import build
 from tpuray_torch.kernels import gather as kg
 from tpuray_torch.kernels import reproject as kr
 from tpuray_torch.kernels import trace as kt
 from tpuray_torch.kernels import trace_chunked as ktc
+from tpuray_torch.kernels import launches, reset_launches
 from tpuray_torch.render.frame_state import FrameState
 from tpuray_torch.render.renderer import Renderer, camera_rays, render_frame, tonemap
 from tpuray_torch.scene.camera import OrbitCamera
@@ -216,7 +244,6 @@ SLICE3_FRAMES = 8  # MIS and separate-walk frames
 FOREST_CHECK_SIZE = 256  # forest frames against the plain versions
 LARGE_CAM = dict(radius=4.0)  # sees the sphere field (tests/test_partition.py)
 KERNEL_REPS = 20
-GRAD_SIZE = 128     # bench.py's gradient checks
 TRAIN_STEPS = 5     # the trainer at W x H
 TRAIN_CHECK_SIZE = 256  # train-step gradients, kernels against plain
 GRAD_ATOL = 1e-4    # of each field's largest |gradient|: table[idx]'s backward sums with atomics
@@ -289,19 +316,6 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def reset_launches() -> None:
-    kt.reset_launches()
-    ktc.reset_launches()
-    kr.reset_launches()
-    ka.reset_launches()
-    kg.reset_launches()
-
-
-def launches() -> dict:
-    return {**kt.LAUNCHES, **ktc.LAUNCHES, **kr.LAUNCHES, **ka.LAUNCHES,
-            **kg.LAUNCHES}
-
-
 def check_closest(name, t, i, t_p, i_p):
     """idx equal but for exact-t ties; t bit-equal."""
     n = i.numel()
@@ -347,6 +361,74 @@ def check_fields(name, got, ref, valid=None) -> float:
     log(f"{name}: {len(got._fields)} outputs within rtol {RTOL} / atol {ATOL}, "
         f"max |diff| {err:.3g}")
     return err
+
+
+def check_k4(name, cfg, k4_in):
+    """K4 against its plain version on k4_in (svgf.reproject_inputs): the
+    validity (history_len) may differ on at most MAX_MISMATCH of the pixels,
+    and every field agrees within RTOL / ATOL away from the 7x7
+    neighbourhoods of those pixels -> (kernel output, plain output, the
+    pixel shares of each branch, max |diff|, plain ms)."""
+    k4 = kr.reproject_variance_fused(cfg, **k4_in)
+    k4_ref, plain_ms = once_ms(lambda: kr.reproject_variance_plain(cfg, **k4_in))
+    sky = k4_in["linear_z"] == 1.0
+    hl_p = k4_ref.history_len
+    shares = dict(reprojected=float(((hl_p > 1) & ~sky).float().mean()),
+                  restarted=float(((hl_p == 1) & ~sky).float().mean()),
+                  **fallback_shares(k4_in, hl_p))
+    log(f"{name} inputs: shares {shares}")
+    hl_diff = k4.history_len != hl_p
+    n_hl, n_px = int(hl_diff.sum()), hl_p.numel()
+    log(f"{name}: history_len differs on {n_hl} of {n_px} pixels (validity)")
+    if n_hl > MAX_MISMATCH * n_px:
+        raise AssertionError(f"{name}: validity differs on {n_hl} pixels")
+    # a pixel whose validity differs moves the 7x7 fallback around it
+    near = torch.nn.functional.max_pool2d(hl_diff.float()[None, None], 7, 1, 3)[0, 0] > 0
+    err = check_fields(f"{name} vs plain", k4, k4_ref, valid=~near)
+    return k4, k4_ref, shares, err, plain_ms
+
+
+def check_k5_iterations(name, k5_args, cfg) -> float:
+    """Each iteration of K5's chain against the plain chain's: the chain cut
+    to i + 1 iterations for each i (its last output and its tap) -> max
+    |diff|."""
+    err = 0.0
+    for i in range(cfg.num_atrous_iterations):
+        c = dataclasses.replace(cfg, num_atrous_iterations=i + 1)
+        (fi, fv), (ti, tv) = ka.atrous_chain(*k5_args, c)
+        (ri, rv), (rti, rtv) = ka.atrous_chain_plain(*k5_args, c)
+        err = max(err, check_fields(f"{name} iteration {i} (step {1 << i})",
+                                    ChainOut(fi, fv, ti, tv), ChainOut(ri, rv, rti, rtv)))
+    return err
+
+
+def check_frame_walks(name, scene, cfg, tables, rays) -> None:
+    """Every K1 and K2 call of one frame of trace_paths on rays (as
+    recorded_calls gives them, compaction as cfg says) against its plain
+    version on the same arguments."""
+    calls = recorded_calls(scene, cfg, tables, rays)
+    kinds = sorted({n for n, _, _ in calls})
+    if kinds != ["multi", "packets"]:
+        raise AssertionError(f"{name}: traversal calls {[n for n, _, _ in calls]}")
+    for k, (kind, args, _) in enumerate(calls):
+        if kind == "packets":
+            t_k, i_k = kt.trace_packets(*args)
+            t_p, i_p = kt.trace_packets_plain(*args)
+            if args[4]:
+                check_any(f"{name} K1 call {k}", i_k, i_p)
+            else:
+                check_closest(f"{name} K1 call {k}", t_k, i_k, t_p, i_p)
+            continue
+        tables_, o2, dirs, tms, ah = args
+        got = kt.trace_multi(tables_, o2, dirs, tms, tuple(ah))
+        ref = kt.trace_multi_plain(tables_, o2, dirs, tms, tuple(ah))
+        for cls in range(len(dirs)):
+            if ah[cls]:
+                check_any(f"{name} K2 call {k} class {cls}", got[cls][1], ref[cls][1])
+            else:
+                check_closest(f"{name} K2 call {k} class {cls}", *got[cls], *ref[cls])
+    log(f"{name}: {len(calls)} traversal calls ({', '.join(n for n, _, _ in calls)}) "
+        f"agree with their plain versions")
 
 
 def assert_images_close(name, a, b, tol=5e-4, outlier_frac=0.005, outlier_max=0.1):
@@ -540,78 +622,32 @@ def phase_k7(scene, prim_idx):
     return results[0]
 
 
-def gradcheck(name, image_of, x0, eps, tol, dev, order_only=False) -> dict:
-    """bench.py's run_check on the loss mean(image_of(s)): AD at x0 against
-    central FD with step eps. The mean is accumulated in float64 (the
-    bench's float32 mean loses several percent of a small FD difference to
-    rounding: both are printed, the float64 one is checked)."""
-    s = torch.tensor(x0, dtype=torch.float32, device=dev, requires_grad=True)
-    image_of(s).double().mean().backward()
-    g = float(s.grad)
-    with torch.no_grad():
-        hi = image_of(torch.tensor(x0 + eps, dtype=torch.float32, device=dev))
-        lo = image_of(torch.tensor(x0 - eps, dtype=torch.float32, device=dev))
-    fd = float(hi.double().mean() - lo.double().mean()) / (2 * eps)
-    fd32 = (float(hi.mean()) - float(lo.mean())) / (2 * eps)
-    rel = abs(g - fd) / max(abs(fd), 1e-8)
-    if order_only:
-        ratio = g / fd if abs(fd) > 1e-10 else float("inf")
-        ok = math.isfinite(g) and 0.3 < ratio < 3.0
-    else:
-        ok = rel < tol
-    line = {"metric": f"gradcheck_{name}_rel_err", "value": rel, "grad": g, "fd": fd,
-            "fd_f32_mean": fd32, "pass": ok}
-    if order_only:
-        line["mode"] = "order_only"
-    log(json.dumps(line))
-    if not ok:
-        raise AssertionError(f"gradcheck {name}: AD {g:.6g} vs FD {fd:.6g} (rel {rel:.3g})")
-    return line
-
-
-def phase_gradchecks(scene, tables, dev) -> None:
-    """14. bench.py's six gradient checks through render_frame, SVGF off."""
-    gh = gw = GRAD_SIZE
-    cfg = RenderConfig(width=gw, height=gh, max_tracing_depth=2, enable_svgf=False,
-                       compact_frac=0.0, compact_auto=False)
-    cam = OrbitCamera(width=gw, height=gh).snapshot(dev)
-    st0 = FrameState.initial(gh, gw, dev)
-    m, lights = scene.materials, scene.lights
-
-    def image(**parts):
-        _, out = render_frame(scene.replace(**parts), cam, st0, cfg, gh, gw,
-                              tables=tables)
-        return out.pt_color
-
-    def light_pos(dx):
-        lp = lights.position
-        z = torch.zeros(lp.shape[:1], device=dev)
-        return lights.replace(position=lp + torch.stack([dx.expand(lp.shape[:1]), z, z],
-                                                        dim=-1))
-
+def phase_gradchecks(scene, tables, dev) -> dict:
+    """14. bench.py's six gradient checks through the bench's own code
+    (bench.gradcheck_lines: render_frame with SVGF off, 128x128, depth 2,
+    compaction on) -> their launches."""
     t0 = time.perf_counter()
-    gradcheck("base_color", lambda s: image(
-        materials=m.replace(base_color=torch.abs(m.base_color) * s)), 0.8, 1e-2, 0.05, dev)
-    gradcheck("specular", lambda s: image(
-        materials=m.replace(specular=torch.full_like(m.specular, 0.5) * s)),
-        0.9, 1e-2, 0.05, dev)
-    gradcheck("sheen", lambda s: image(
-        materials=m.replace(sheen=torch.full_like(m.sheen, 0.5) * s)), 0.9, 1e-2, 0.05, dev)
-    gradcheck("light_radiance", lambda s: image(
-        lights=lights.replace(radiance=lights.radiance * s)), 0.9, 1e-2, 0.05, dev)
-    gradcheck("light_pos_interior", lambda dx: image(lights=light_pos(dx)),
-              0.0, 5e-3, 0.0, dev, order_only=True)
-    s = torch.tensor(0.9, device=dev, requires_grad=True)
-    image(materials=m.replace(roughness=torch.clamp(torch.abs(m.roughness) * s, 0.05, 1.0))
-          ).double().mean().backward()
-    g2 = float(s.grad)
-    ok = math.isfinite(g2) and abs(g2) > 1e-10
-    log(json.dumps({"metric": "gradcheck_roughness_d2_ad_sanity", "value": g2,
-                    "pass": ok}))
-    if not ok:
-        raise AssertionError(f"roughness AD sanity: {g2}")
-    log(f"gradient checks: 6 at {gw}x{gh}, depth 2, SVGF off, in "
-        f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.synchronize()
+    reset_launches()
+    lines = []
+    for line in bench.gradcheck_lines(scene, tables, dev):
+        log(json.dumps(line))
+        if not line["pass"]:
+            raise AssertionError(f"{line['metric']}: {line}")
+        lines.append(line)
+    run = launches()
+    renders = 3 * (len(lines) - 1) + 1  # AD and two FD renders a check, AD only for roughness
+    log(f"gradient checks: {len(lines)} at {bench.GRAD_SIZE}x{bench.GRAD_SIZE}, depth 2, SVGF off, "
+        f"compaction on, in {time.perf_counter() - t0:.2f} s; launches {run}")
+    if len(lines) != 6 or not 2 * renders <= run["k2"] <= 4 * renders:
+        raise AssertionError(f"gradient checks: {len(lines)} lines, launches {run}")
+    expect_launches("gradient checks", run, dict(k1=renders, k3=0, k4=0, k5=0, k6=0, k7=0))
+    # K1 and K2 at the checks' size and config, on their camera's rays
+    size = bench.GRAD_SIZE
+    cam = OrbitCamera(width=size, height=size).snapshot(dev)
+    check_frame_walks(f"gradient-check frame {size}x{size}", scene, bench.gradcheck_config(),
+                      tables, camera_rays(cam, size, size))
+    return run
 
 
 def train_grads(scene, cfg, cam, target, size, tracer) -> tuple[float, dict]:
@@ -1496,6 +1532,262 @@ def _same_tree(name: str, got: dict, want: dict) -> int:
     return int((got["perm"] != want["perm"]).sum())
 
 
+# bench.py's metrics, in its order, with the launches each run must make
+# (timed_stats: one warm-up call, then trials x iters); None: checked in
+# phase_bench
+BENCH_METRICS = {
+    "trace_rays_per_second": dict(k1=1 + 20 * 6),
+    "trace_incoherent_rays_per_second": dict(k3=1 + 8 * 3),
+    "frame_ms_moving_800px": None,
+    "svgf_chain_ms_moving_1080p": dict(k4=1 + 5 * 3, k5=5 * (1 + 5 * 3)),
+    **{f"gradcheck_{name}_rel_err": None for name in
+       ("base_color", "specular", "sheen", "light_radiance", "light_pos_interior")},
+    "gradcheck_roughness_d2_ad_sanity": None,
+    "trace_chunked_131k_rays_per_second": dict(k6=1 + 8 * 3),
+    "trace_chunked_524k_rays_per_second": dict(k6=1 + 8 * 3),
+    "bench_total_s": {},
+}
+
+
+def held_events(stages, spin: int = 1 << 26) -> tuple[list, float, bool]:
+    """Each stage() on the device, timed by events in one queue behind a
+    spin kernel -> (device ms of each stage, the host's ms to queue them
+    all, whether the spin ended before the host had queued them: then the
+    readings are host-paced)."""
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(spin)
+    t0 = time.perf_counter()
+    evs[0].record()
+    for stage, ev in zip(stages, evs[1:]):
+        stage()
+        ev.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    drained = evs[0].query()
+    torch.cuda.synchronize()
+    return [x.elapsed_time(y) for x, y in zip(evs, evs[1:])], host_ms, drained
+
+
+def chain_profile(fn) -> None:
+    """One call of fn under torch.profiler behind a spin kernel, events
+    around it: the device kernels' own time, their span, the gaps between
+    them, memcpy/memset, the host's synchronising calls, and the events'
+    span beside the kernels' (a kernel the profiler did not record shows
+    as the difference)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1 << 26)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    events = prof.events()
+    work = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.time_range.elapsed_us() < 20_000),  # the spin takes ~34 ms
+                  key=lambda e: e.time_range.start)
+    syncs = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU and (
+                "Synchronize" in e.name or e.name == "aten::_local_scalar_dense"):
+            syncs[e.name] = syncs.get(e.name, 0) + 1
+    by_name, gaps, end_us = {}, [], None
+    for e in work:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        if end_us is not None:
+            gaps.append(max(0.0, e.time_range.start - end_us))
+        end_us = max(end_us or 0.0, e.time_range.end)
+    span = end_us - work[0].time_range.start
+    own = sum(us for _, us in by_name.values())
+    mem = {k: v for k, v in by_name.items() if k.startswith(("Memcpy", "Memset"))}
+    ours = {k: sum(n for name, (n, _) in by_name.items() if k in name)
+            for k in ("reproject_variance", "atrous_step")}
+    gaps.sort()
+    log(f"bench 1080p chain, one call under torch.profiler behind a spin kernel: "
+        f"{len(work)} device events (K4 {ours['reproject_variance']}, K5 "
+        f"{ours['atrous_step']}; {sum(n for n, _ in mem.values())} memcpy/memset), "
+        f"their own time {own / 1e3:.4f} ms, span {span / 1e3:.4f} ms; the events' span "
+        f"{start.elapsed_time(end):.4f} ms; {len(gaps)} gaps, {sum(gaps) / 1e3:.4f} ms "
+        f"in all, median {gaps[len(gaps) // 2]:.2f} us, largest {gaps[-1]:.2f} us; host "
+        f"syncs {syncs} (one ends the profile)")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    log("bench 1080p chain, its largest device events: "
+        + "; ".join(f"{name[:90]} x{n} {us / 1e3:.4f} ms" for name, (n, us) in top))
+
+
+def bench_chain_against_plain(chain_ms: float) -> float:
+    """22, after the bench: the 1080p chain's inputs rebuilt from
+    bench.svgf_inputs; K4 and each K5 iteration against their plain
+    versions on them, the whole chain against the plain denoiser, its
+    device time a call (kernel_ms) beside the bench's host time a call,
+    each stage's device time (held_events), and one call under
+    torch.profiler (chain_profile) -> the device ms a call."""
+    dev = torch.device("cuda")
+    gbuf, st, color, emi, alb = bench.svgf_inputs(1080, 1920, dev)
+    cfg = RenderConfig(width=1920, height=1080)
+    k4_in = reproject_inputs(color, emi, alb, gbuf, st)
+    k4, *_ = check_k4("bench K4 1080p", cfg, k4_in)
+    check_k5_iterations("bench K5 1080p", (k4.var_illum, k4.var_variance, k4_in["normal"],
+                                           k4_in["linear_z"], k4_in["fwidth_z"]), cfg)
+    assert_images_close("bench 1080p chain, kernels vs the plain denoiser",
+                        svgf_pipeline(color, emi, alb, gbuf, st, cfg).taa,
+                        svgf_pipeline(color, emi, alb, gbuf, st,
+                                      dataclasses.replace(cfg, pallas_denoise=False)).taa)
+    del k4, k4_in
+
+    def chain():
+        return svgf_pipeline(color, emi, alb, gbuf, st, cfg).taa
+
+    # one call a reading: five calls' ~2,800 launches overflow the launch
+    # queue, and the host then waits for the spin (kernel_ms)
+    chain_dev = kernel_ms(chain, 1)
+    log(f"bench svgf_chain_ms_moving_1080p: {chain_ms} ms a call (host clock, min of "
+        f"trials); device {chain_dev:.4f} ms a call (kernel_ms, one call a reading): "
+        f"{'host' if chain_ms > 1.1 * chain_dev else 'device'}-bound, the device's span "
+        f"{chain_dev / chain_ms:.2f} of the call")
+    # svgf_pipeline's stages one by one, as it runs them
+    k4_in = reproject_inputs(color, emi, alb, gbuf, st)
+    out = {}
+    stages = [
+        lambda: out.update(k4=kr.reproject_variance_fused(cfg, **k4_in)),
+        lambda: out.update(k5=ka.atrous_chain(
+            out["k4"].var_illum, out["k4"].var_variance, k4_in["normal"],
+            k4_in["linear_z"], k4_in["fwidth_z"], cfg)[0][0]),
+        lambda: out.update(mod=modulate(out["k5"], alb, emi, gbuf.linear_z)),
+        lambda: taa(out["mod"], st.taa_color, gbuf.velocity, gbuf.linear_z, st.frame_idx)]
+    held_events(stages)  # warm-up
+    parts, host_ms, drained = held_events(stages)
+    log(f"bench 1080p chain by stage, device ms behind a spin kernel (the host queued "
+        f"them in {host_ms:.4f} ms, {'after' if drained else 'before'} the spin ended): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in zip(("K4", "K5 x5", "modulate", "TAA"), parts))
+        + f"; sum {sum(parts):.4f}")
+    del k4_in, out
+    chain_profile(chain)
+    return chain_dev
+
+
+def bench_inputs_against_plain(metrics: dict, k1_ms: float, k3_ms: float,
+                               forests: dict) -> None:
+    """22, after the bench: its inputs rebuilt here from its own functions
+    (the flagship scene, primary_rays, incoherent_inputs, svgf_inputs) and
+    phase 8's and 9's forests (forests: label -> (tables, triangles)), each
+    kernel against its plain version, and its device time (kernel_ms)
+    beside the bench's rate a call (host clock: the wrapper's call, launch
+    included)."""
+    import numpy as np
+    dev = torch.device("cuda")
+    scene, _ = bench.flagship_scene(dev)
+    tables = pt.pack_traversal(scene)
+    o_np, d_np = bench.primary_rays(OrbitCamera(width=W, height=H).snapshot(), H, W)
+    o = torch.from_numpy(np.ascontiguousarray(o_np)).to(dev)
+    d = torch.from_numpy(d_np).to(dev)
+    tm = torch.full((d.shape[0],), INF, device=dev)
+    _, k1_dev, *_ = check_class("bench K1 primaries", kt.trace_packets,
+                                kt.trace_packets_plain, tables, (o, d, INF, False, True),
+                                any_hit=False)
+    p_inc, d_inc = bench.incoherent_inputs(o, d, kt.trace_packets(
+        tables, o, d, INF, common_origin=True)[0])
+    _, k3_dev, *_ = check_class("bench K3 incoherent", kt.trace_batched,
+                                kt.trace_packets_plain, tables, (p_inc, d_inc, tm, False),
+                                any_hit=False)
+    bench_chain_against_plain(metrics["svgf_chain_ms_moving_1080p"]["value"])
+    device = {"trace_rays_per_second": ("K1", k1_dev, f"phase 1's {k1_ms:.4f}"),
+              "trace_incoherent_rays_per_second": ("K3", k3_dev,
+                                                   f"phase 11's bounce ray {k3_ms:.4f}")}
+    # the forests of phases 8 and 9: make_large_scene's geometry at the
+    # bench's sizes (the bench's smaller environment map does not reach the
+    # traversal)
+    for label, (forest, n_tris) in forests.items():
+        m = f"trace_chunked_{label}_rays_per_second"
+        if (metrics[m]["tris"], metrics[m]["chunks"]) != (n_tris, forest.n_chunks):
+            raise AssertionError(f"bench {m}: {metrics[m]} is not the forest of "
+                                 f"{n_tris} triangles in {forest.n_chunks} chunks")
+        _, ms, *_ = check_class(f"bench K6 {label} primaries", ktc.trace_chunked,
+                                ktc.trace_chunked_plain, forest, (o, d, tm, False, True),
+                                any_hit=False)
+        device[m] = ("K6", ms, "")
+    n_rays = d.shape[0]
+    for m, (kernel, device_ms, other) in device.items():
+        call_ms = n_rays / metrics[m]["value"] * 1e3
+        log(f"bench {m}: {metrics[m]['value'] / 1e9:.3f} G rays/s, {call_ms:.4f} ms a call "
+            f"(host clock, min of trials; median {metrics[m]['spread_mrays']['median']} M "
+            f"rays/s); {kernel} device {device_ms:.4f} ms on these rays "
+            f"({n_rays / device_ms / 1e6:.2f} G rays/s; {other}): "
+            f"{'host' if call_ms > 1.1 * device_ms else 'device'}-bound, device busy "
+            f"{device_ms / call_ms:.2f} of the call")
+
+
+def phase_bench(k1_ms: float, k3_ms: float, forests: dict) -> dict:
+    """22. `python -m tpuray_torch.cli.main bench` as a user runs it, with
+    BENCH_FULL=1 -> the launches its metric lines report."""
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "tpuray_torch.cli.main", "bench"]
+    t0 = time.perf_counter()
+    # stderr read as the bench writes it: each metric's seconds are the gap
+    # since the line before it (the headline's: from the start)
+    with subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                          text=True, env=dict(os.environ, BENCH_FULL="1")) as proc:
+        try:
+            timed_err = [(time.perf_counter(), text.rstrip("\n")) for text in proc.stderr]
+            out = proc.stdout.read().splitlines()
+            rc = proc.wait(timeout=600)
+        finally:
+            proc.kill()
+    secs = time.perf_counter() - t0
+    log(f"bench: {' '.join(cmd[1:])} -> exit {rc} in {secs:.1f} s")
+    if rc != 0:
+        raise AssertionError(f"bench exited {rc}: {[t for _, t in timed_err][-30:]}")
+    if len(out) != 1:
+        raise AssertionError(f"bench printed {len(out)} stdout lines: {out[:5]}")
+    log(f"  bench (stdout): {out[0]}")
+    head = json.loads(out[0])
+    if (head.get("metric") != "trace_rays_per_second" or not head.get("value", 0) > 0
+            or not {"unit", "vs_baseline", "spread_mrays"} <= set(head)):
+        raise AssertionError(f"bench headline {head}")
+    lines, other, last = [head], [], t0
+    for at, text in timed_err:
+        if text.startswith("{"):
+            lines.append(json.loads(text))
+            log(f"  bench ({at - last:.2f} s): {text}")
+            last = at
+        else:
+            other.append(text)
+    if other:
+        log(f"  bench stderr, not JSON: {other[:10]}")
+    metrics = {x["metric"]: x for x in lines if "metric" in x}
+    names = [x["metric"] for x in lines if "metric" in x]
+    bad = [m for m in BENCH_METRICS if m not in metrics or "error" in metrics[m]]
+    if bad or names[-1] != "bench_total_s" or len(names) != len(set(names)):
+        raise AssertionError(f"bench metrics missing or failed {bad}; printed {names}")
+    failed = [m for m in metrics if m.startswith("gradcheck") and metrics[m]["pass"] is not True]
+    if failed:
+        raise AssertionError(f"bench gradient checks failed: {failed}")
+    total = dict.fromkeys(launches(), 0)
+    grad_runs = {}
+    for m, want in BENCH_METRICS.items():
+        got = metrics[m].get("launches", {})
+        add_launches(total, got)
+        if m.startswith("gradcheck"):
+            for k, n in got.items():
+                grad_runs[k] = grad_runs.get(k, 0) + n
+        elif m.startswith("frame"):  # K2 2 a frame, 4 with the residual pass
+            frames = 1 + 8 * 3
+            if (set(got) != {"k1", "k2", "k4", "k5"} or got["k1"] != frames
+                    or got["k4"] != frames or got["k5"] != 5 * frames
+                    or not 2 * frames <= got["k2"] <= 4 * frames):
+                raise AssertionError(f"bench {m}: launches {got}")
+        elif got != want:
+            raise AssertionError(f"bench {m}: launches {got}, want {want}")
+    renders = 3 * 5 + 1
+    if (set(grad_runs) != {"k1", "k2"} or grad_runs["k1"] != renders
+            or not 2 * renders <= grad_runs["k2"] <= 4 * renders):
+        raise AssertionError(f"bench gradient checks: launches {grad_runs}")
+    bench_inputs_against_plain(metrics, k1_ms, k3_ms, forests)
+    log(f"bench: {len(names)} metrics, launches {total}, {secs:.1f} s")
+    return total
+
+
 def phase_native(dev) -> None:
     """21. The native host library against its numpy copies, set-up times,
     and a frame on a native-built scene."""
@@ -1689,25 +1981,10 @@ def main() -> None:
 
     # ---- 3. K4 on the denoiser's inputs of the 5th moving frame
     _, _, _, _, k4_in = moving_renderer(scene, SLICE, 5)
-    k4 = kr.reproject_variance_fused(SLICE, **k4_in)
-    k4_ref, k4_plain_ms = once_ms(lambda: kr.reproject_variance_plain(SLICE, **k4_in))
-    sky = k4_in["linear_z"] == 1.0
-    hl_k, hl_p = k4.history_len, k4_ref.history_len
-    n_px = hl_p.numel()
-    shares = dict(reprojected=float(((hl_p > 1) & ~sky).float().mean()),
-                  restarted=float(((hl_p == 1) & ~sky).float().mean()),
-                  **fallback_shares(k4_in, hl_p))
-    log(f"K4 inputs (frame 5): shares {shares}")
+    k4, k4_ref, shares, k4_err, k4_plain_ms = check_k4("K4 (frame 5)", SLICE, k4_in)
     if shares["reprojected"] <= 0.0 or shares["fallback"] <= 0.0:
         raise AssertionError("K4 inputs do not exercise both the reprojection and the fallback")
-    hl_diff = hl_k != hl_p
-    n_hl = int(hl_diff.sum())
-    log(f"K4: history_len differs on {n_hl} of {n_px} pixels (validity)")
-    if n_hl > MAX_MISMATCH * n_px:
-        raise AssertionError(f"K4: validity differs on {n_hl} pixels")
-    # a pixel whose validity differs moves the 7x7 fallback around it
-    near = torch.nn.functional.max_pool2d(hl_diff.float()[None, None], 7, 1, 3)[0, 0] > 0
-    k4_err = check_fields("K4 vs plain", k4, k4_ref, valid=~near)
+    sky, hl_p = k4_in["linear_z"] == 1.0, k4_ref.history_len
     k4_ms = kernel_ms(lambda: kr.reproject_variance_fused(SLICE, **k4_in))
     n_fail = int(((hl_p == 1) & ~sky).sum())
     n_fallback = int(((hl_p < 4) & ~sky).sum())
@@ -1877,7 +2154,8 @@ def main() -> None:
         forest_h, calls_h[3][1][1:], any_hit=False)
     log(f"K6 524k: primaries {k6h_prim_ms:.4f} ms, bounce-0 bounce ray "
         f"{k6h_bounce_ms:.4f} ms")
-    del huge, forest_h, calls_h
+    huge_tris = int(huge.triangles.count)
+    del huge, calls_h
 
     # ---- 10. slice 3's main path: moving SVGF frames on the 131k forest
     r = Renderer(large, SLICE)
@@ -1906,7 +2184,9 @@ def main() -> None:
         f"{plain_frames_ms:.1f} ms (set-up included)")
     assert_images_close("131k frame 2 final, kernels vs plain", out_k.final, out_p.final)
     check_image(out_k, svgf_on=True)
-    del r, large, forest, calls
+    forests = {"131k": (forest, int(large.triangles.count)),
+               "524k": (forest_h, huge_tris)}
+    del r, large, calls
 
     # ---- 11. K3: the five walks of a separate-walk and of a MIS frame
     k3_err, k3_frame_ms = 0.0, {}
@@ -1950,7 +2230,7 @@ def main() -> None:
     k7_ms, k7_plain_ms, k7_lib_ms, k7_bound = phase_k7(scene, i_k)
 
     # ---- 14. the gradient checks, SVGF off
-    phase_gradchecks(scene, tables, dev)
+    add_launches(path_launches, phase_gradchecks(scene, tables, dev))
 
     # ---- 15. the trainer at 800x800
     add_launches(path_launches, phase_train(scene, dev))
@@ -1978,6 +2258,10 @@ def main() -> None:
     add_launches(path_launches, phase_viewer(dev))
     add_launches(path_launches, phase_cli_train())
     phase_native(dev)
+
+    # ---- 22. the bench through the CLI
+    add_launches(path_launches, phase_bench(k1_ms, k3_ms, forests))
+    del forests
 
     def entry(name, source, replaces, key, err, ms, plain_ms, b, library_ms=None):
         return dict(name=name, route="cuda", source=source, replaces=replaces,

@@ -10,8 +10,8 @@ bit. train at 16x16, depth 1, 3 steps takes tpuray's cmd_train's
 per-step losses (tolerance argued in its test) and writes both PNGs; at
 256x256, depth 2, 5 steps (a test marked slow, ~2 min) it follows
 tpuray's overshooting trajectory within the same tolerance. view
-serves /state on the port it prints and exits 0 on Ctrl-C. bench, not
-ported, raises NotImplementedError naming its ROADMAP.md item.
+serves /state on the port it prints and exits 0 on Ctrl-C. bench is
+tests/test_torch_bench.py's.
 """
 import contextlib
 import io
@@ -106,20 +106,12 @@ def test_animate_writes_sequence(tmp_path):
     assert sorted(os.listdir(tmp_path)) == ["anim_0000.png", "anim_0002.png"]
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["bench"], "item 3"),
-    (["render", "--device", "cpu", "--size", "16", "--frames", "2", "--elastic"], None)],
-    ids=["bench", "elastic"])
-def test_unported_commands_raise(argv, item, tmp_path):
-    """bench, not ported, raises naming its item; render --elastic is
-    ported and runs."""
-    if item is None:
-        ck, out = str(tmp_path / "ck.npz"), str(tmp_path / "e.png")
-        assert cli.main(argv + [ck, "--out", out]) == 0
-        assert load_frame_state(ck).frame_idx == 2 and os.path.exists(out)
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(argv)
+def test_render_elastic_runs(tmp_path):
+    """render --elastic renders its frames and writes its checkpoint."""
+    ck, out = str(tmp_path / "ck.npz"), str(tmp_path / "e.png")
+    assert cli.main(["render", "--device", "cpu", "--size", "16", "--frames", "2",
+                     "--elastic", ck, "--out", out]) == 0
+    assert load_frame_state(ck).frame_idx == 2 and os.path.exists(out)
 
 
 def _train_losses(module, make_module, argv):

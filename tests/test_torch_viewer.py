@@ -24,6 +24,7 @@ assignment on the CPU, against tpuray.
 """
 import dataclasses
 import json
+import threading
 import urllib.error
 import urllib.request
 
@@ -224,10 +225,14 @@ class _Stop(Exception):
 
 def _next_frame_cfg(monkeypatch, module, r, camera):
     """The config that r.step hands render_frame (recorded, then the step
-    stops before any tracing)."""
-    seen = []
+    stops before any tracing). Only this thread's call is recorded: the
+    module's server fixture renders on its own thread meanwhile, and its
+    calls go to the real render_frame."""
+    seen, me, real = [], threading.get_ident(), module.render_frame
 
     def record(scene, cam, state, cfg, *a, **k):
+        if threading.get_ident() != me:
+            return real(scene, cam, state, cfg, *a, **k)
         seen.append(cfg)
         raise _Stop
 

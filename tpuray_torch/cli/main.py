@@ -3,8 +3,9 @@
 Headless progressive rendering to PNG with debug-view selection and
 FrameState checkpoints, a supervised render loop that restores and replays
 after a device fault (--elastic), an orbiting-camera PNG sequence, the
-differentiable material recovery demo and the browser viewer, on the CUDA
-card by default (--device cpu runs on the CPU).
+differentiable material recovery demo, the browser viewer and the
+benchmark (tpuray_torch/bench.py), on the CUDA card by default (--device
+cpu runs on the CPU).
 
 Examples:
   python -m tpuray_torch.cli.main render --frames 8 --out out.png
@@ -13,8 +14,7 @@ Examples:
   python -m tpuray_torch.cli.main animate --frames 24 --every 4
   python -m tpuray_torch.cli.main train --steps 20 --out-prefix fit
   python -m tpuray_torch.cli.main view --port 8008
-
-`bench` raises NotImplementedError naming its ROADMAP.md item.
+  BENCH_FULL=1 python -m tpuray_torch.cli.main bench
 """
 from __future__ import annotations
 
@@ -217,10 +217,11 @@ def cmd_view(args) -> int:
     return 0
 
 
-def _not_ported(what: str, item: str):
-    def cmd(args) -> int:
-        raise NotImplementedError(f"{what} is ROADMAP.md item {item}")
-    return cmd
+def cmd_bench(args) -> int:
+    """bench.py's metrics through the port (tpuray_torch/bench.py); its
+    budget reads BENCH_BUDGET_S and BENCH_FULL."""
+    from tpuray_torch import bench
+    return bench.main(["--device", args.device])
 
 
 def main(argv=None) -> int:
@@ -290,8 +291,9 @@ def main(argv=None) -> int:
     device_option(pv)
     pv.set_defaults(fn=cmd_view)
 
-    pb = sub.add_parser("bench", help="run the benchmark (not ported)")
-    pb.set_defaults(fn=_not_ported("bench (the port's bench)", "3"))
+    pb = sub.add_parser("bench", help="run the benchmark")
+    device_option(pb)
+    pb.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     if args.asset_root:

@@ -144,11 +144,10 @@ def plain_svgf(color: Tensor, emission: Tensor, albedo: Tensor, gbuf: GBuffer,
         moments=rep.moments, history_len=rep.history_len)
 
 
-def svgf_pipeline(color: Tensor, emission: Tensor, albedo: Tensor,
-                  gbuf: GBuffer, state: FrameState, cfg: RenderConfig,
-                  static_camera: bool = False) -> SVGFOutput:
-    if not cfg.pallas_denoise:
-        return plain_svgf(color, emission, albedo, gbuf, state, cfg, static_camera)
+def reproject_inputs(color: Tensor, emission: Tensor, albedo: Tensor,
+                     gbuf: GBuffer, state: FrameState) -> dict:
+    """K4's keyword inputs (kernels/reproject.py) from a frame's buffers and
+    its history, each contiguous."""
     inputs = dict(
         color=color, emission=emission, albedo=albedo, motion=gbuf.velocity,
         normal=gbuf.normal, linear_z=gbuf.linear_z,
@@ -156,7 +155,15 @@ def svgf_pipeline(color: Tensor, emission: Tensor, albedo: Tensor,
         prev_illum=state.illum_hist, prev_variance=state.variance_hist,
         prev_normal=state.prev_normal, prev_linear_z=state.prev_linear_z,
         prev_moments=state.moments, prev_history_len=state.history_len)
-    inputs = {k: v.contiguous() for k, v in inputs.items()}
+    return {k: v.contiguous() for k, v in inputs.items()}
+
+
+def svgf_pipeline(color: Tensor, emission: Tensor, albedo: Tensor,
+                  gbuf: GBuffer, state: FrameState, cfg: RenderConfig,
+                  static_camera: bool = False) -> SVGFOutput:
+    if not cfg.pallas_denoise:
+        return plain_svgf(color, emission, albedo, gbuf, state, cfg, static_camera)
+    inputs = reproject_inputs(color, emission, albedo, gbuf, state)
     if static_camera:
         if color.is_cuda:
             raise ValueError("svgf_pipeline: the static-camera branch is plain; on the "

@@ -50,7 +50,10 @@ def kernel_ms(fn, reps: int = 20) -> float:
     kernel). The spin grows 4x while it ends before the last call is
     queued; a call that waits for the device (a synchronous copy of a host
     scalar) drains it however long it is, and is then timed with the
-    host's share, as without the spin."""
+    host's share, as without the spin. So do reps calls that launch more
+    kernels than the device's launch queue holds: the host blocks in the
+    launch until the spin ends (the 1080p SVGF chain's ~560 kernels a call
+    are timed with reps=1)."""
     import torch
     for _ in range(3):
         fn()
