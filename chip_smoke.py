@@ -21,9 +21,21 @@ instructions in its SASS (cuobjdump -sass), then:
      of a moving 800x800 Renderer, against its plain version, with the
      inputs' shares of sky and fallback pixels and of blocks with a
      fallback pixel;
-  4. K5 (atrous_chain, 5 iterations) on K4's output, against its plain
+  4. K5 (atrous_step, a chain of 5 iterations) on K4's output, against its plain
      version, timed at 1 to 5 iterations: each step's time beside the
      chain's;
+ 4b. K4 and each K5 iteration with the row window of a sharded frame's
+     rank (atrous_step: one iteration), 2 and 4 shards emulated in this
+     process on phase 3's buffers (NCCL puts one rank on a card, and a world
+     of one takes the whole image): each shard's rows cut from the full
+     image extended by the stage's reach (K4 the halo 32 + 3, K5 2 * step +
+     1; the image's edge rows replicated, as the halo exchange gives the
+     first and last rank), the kernel run with the shard's window, cropped
+     and stitched; held against the plain versions under the same windows
+     (validity equal, rtol 1e-5 / atol 1e-6) and against the whole-image
+     kernels (phase 3's history taps lie inside the halo: K4 exact, K5
+     within rtol 1e-5); the launches, and each kernel's ms on one shard's
+     rows with and without the window;
   5. slice 2's path: Renderer under the slice config (SVGF and TAA on, the
      default view), 2 warm-up frames, then 16 moving-camera frames with the
      launch counts set to 0 just before and read just after; checks the
@@ -101,14 +113,13 @@ instructions in its SASS (cuobjdump -sass), then:
  18. the distribution layer on one NCCL rank (a process group of one from
      a file store under build/; NCCL puts one rank on a card, so this is
      the edge-replicating halo branch and collectives of one): 6 moving
-     800x800 frames of render_frame_sharded with the launch counts set to 0
-     just before and read just after (K1 1, K2 2 a frame, or 4 with the
-     residual pass; no K4 or K5: the sharded frame runs the plain denoise
-     stages), bit-equal to render_frame with the plain denoiser at
-     compact_frac 0 (final and history_len), within the image tolerance
-     at compact_frac 0.5; one sharded frame of the 20k file scene (a
-     forest: K6 6 a frame, 11 with the residual pass) against
-     render_frame; render_tiled at 800x800 bit-equal to trace_paths on the
+     800x800 frames of render_frame_sharded under the slice config's
+     denoiser with the launch counts set to 0 just before and read just
+     after (K1 1, K2 2 a frame, or 4 with the residual pass; K4 1 and K5
+     5 a frame), bit-equal to render_frame at compact_frac 0 (final and
+     history_len), within the image tolerance at compact_frac 0.5; one
+     sharded frame of the 20k file scene (a forest: K6 6 a frame, 11 with
+     the residual pass; K4 1, K5 5) against render_frame; render_tiled at 800x800 bit-equal to trace_paths on the
      same row-major rays (K1 1, K2 2), and K1 timed on those rays beside
      the frame's tile-ordered ones; 2 sharded train steps at 800x800,
      depth 2, against make_train_step's (losses within rtol 1e-5, the last
@@ -117,8 +128,9 @@ instructions in its SASS (cuobjdump -sass), then:
      injected before frame 3, bit-equal to an uninterrupted run with one
      restore; `render --elastic` through the CLI; then the wall median,
      device ms and busy share of render_frame (K4, K5), render_frame with
-     the plain denoiser and render_frame_sharded (a world of one: render_frame's
-     plain stages on the row-major trace, no halo exchange), in one call.
+     the plain denoiser, render_frame_sharded (a world of one: render_frame's
+     stages on the row-major trace, no halo exchange) with K4 and K5 and
+     with the plain stages, in one call.
  19. the viewer (viewer/server.py) on the card: ViewerServer on the 5k file
      scene under RenderConfig(width=400, height=400), 30 frames long-polled
      over loopback with no event (each PNG 400x400 and finite), then a
@@ -198,6 +210,7 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
+from tpuray_torch.denoise.atrous import atrous_iteration
 from tpuray_torch.denoise.modulate import modulate
 from tpuray_torch.denoise.svgf import reproject_inputs, svgf_pipeline
 from tpuray_torch.denoise.taa import taa
@@ -225,7 +238,8 @@ from tpuray_torch.denoise_times import (
     chain_times, fallback_shares, moving_renderer, step_increments)
 from tpuray_torch.io import native
 from tpuray_torch.io.image import read_png
-from tpuray_torch.profile_frames import FrameRun, ShardedRun, file_scene
+from tpuray_torch.profile_frames import (
+    SESSION_PAD, FrameRun, ShardedRun, file_scene, profiled)
 from tpuray_torch.traversal_times import (
     k1_rays, k3_walks, k7_cases, kernel_ms, recorded_calls)
 from tpuray_torch.utils.elastic import run_elastic
@@ -252,6 +266,8 @@ SWITCH_FRAMES = 32  # phase 16's counted frames: the first bucket switch comes a
 PROFILE_FRAMES = 8  # phase 16's frames under torch.profiler, compaction on and off
 MAX_MISMATCH = 1e-4  # idx / hit-miss / validity may differ on <= 0.01%
 RTOL, ATOL = 1e-5, 1e-6  # K4 and K5 against their plain versions
+ROW_SHARDS = (2, 4)     # phase 4b: the shards emulated in one process
+ROW_HALO = 32           # render_frame_sharded's default halo
 DIST_FRAMES = 6         # phase 18's moving sharded frames, each config
 DIST_COMPACT = 0.5      # the default budget, held fixed (the sharded frame has no tuner)
 DIST_TRAIN_STEPS = 2    # sharded train steps against make_train_step's
@@ -290,6 +306,11 @@ class ChainOut(NamedTuple):  # K5's outputs, for check_fields
     variance: torch.Tensor
     tap_illum: torch.Tensor
     tap_variance: torch.Tensor
+
+
+class StepOut(NamedTuple):  # one K5 iteration's outputs, for check_fields
+    illum: torch.Tensor
+    variance: torch.Tensor
 
 
 def log(msg: str) -> None:
@@ -395,11 +416,115 @@ def check_k5_iterations(name, k5_args, cfg) -> float:
     err = 0.0
     for i in range(cfg.num_atrous_iterations):
         c = dataclasses.replace(cfg, num_atrous_iterations=i + 1)
-        (fi, fv), (ti, tv) = ka.atrous_chain(*k5_args, c)
-        (ri, rv), (rti, rtv) = ka.atrous_chain_plain(*k5_args, c)
+        (fi, fv), (ti, tv) = ka.chain(ka.atrous_step, *k5_args, c)
+        (ri, rv), (rti, rtv) = ka.chain(atrous_iteration, *k5_args, c)
         err = max(err, check_fields(f"{name} iteration {i} (step {1 << i})",
                                     ChainOut(fi, fv, ti, tv), ChainOut(ri, rv, rti, rtv)))
     return err
+
+
+def slab(x, row0, rows):
+    """Rows row0 .. row0 + rows - 1 of a full-image tensor, its edge rows
+    replicated past the image (what dist/frame.py:_halo_rows gives the first
+    and the last rank)."""
+    idx = torch.clamp(torch.arange(row0, row0 + rows, device=x.device), 0, x.shape[0] - 1)
+    return x.index_select(0, idx).contiguous()
+
+
+def sharded_stage(fn, xs, shards: int, k: int) -> tuple:
+    """fn(slabs, (row0, H)) -> a tuple of tensors on each of `shards` row
+    shards of the full-image tensors xs (a dict or a list) extended by k rows
+    a side, cropped and stitched -> the full-image tuple."""
+    rows = H // shards
+    parts = []
+    for r in range(shards):
+        row0 = r * rows - k
+        cut = ({n: slab(x, row0, rows + 2 * k) for n, x in xs.items()} if isinstance(xs, dict)
+               else [slab(x, row0, rows + 2 * k) for x in xs])
+        parts.append(fn(cut, (row0, H)))
+    return tuple(torch.cat([part[i][k:-k] for part in parts]) for i in range(len(parts[0])))
+
+
+def phase_row_window(k4_in: dict, cfg) -> None:
+    """4b. K4 and each K5 iteration with the row window of a sharded frame's
+    rank, ROW_SHARDS shards emulated in this process on phase 3's buffers
+    (NCCL puts one rank on a card, and a world of one takes the whole
+    image): each shard's rows cut from the full image extended by the
+    stage's reach (K4 ROW_HALO + 3, K5 2 * step + 1; the image's edge rows
+    replicated, as _halo_rows does), the kernel run with the shard's window,
+    cropped and stitched. Held (a) against the plain versions under the same
+    windows at phases 3's and 4's tolerances (validity equal), (b) against
+    the whole-image kernels on the same buffers, where every history tap lies
+    inside the halo: K4 exact, K5 within RTOL. Prints the launches and
+    each kernel's ms on one shard's rows with and without the window."""
+    # the farthest row a pixel's bilinear and rescue taps read
+    reach = float(k4_in["motion"][..., 1].abs().max()) * H + 3.0
+    log(f"row window: the history taps lie within {reach:.2f} rows of their pixel "
+        f"(halo {ROW_HALO})")
+    if reach >= ROW_HALO:
+        raise AssertionError("phase 3's motion leaves the halo: (b) cannot hold")
+    kk = ROW_HALO + 3
+    whole = kr.reproject_variance_fused(cfg, **k4_in)
+    g_in = [k4_in["normal"], k4_in["linear_z"], k4_in["fwidth_z"]]
+    for n in ROW_SHARDS:
+        reset_launches()
+        got = kr.FusedOutput(*sharded_stage(
+            lambda s, win: kr.reproject_variance_fused(cfg, row_window=win, **s), k4_in, n, kk))
+        run = launches()
+        ref = kr.FusedOutput(*sharded_stage(
+            lambda s, win: kr.reproject_variance_plain(cfg, row_window=win, **s), k4_in, n, kk))
+        if not torch.equal(got.history_len, ref.history_len):
+            raise AssertionError(f"K4, {n} shards: the validity differs from the plain version")
+        err = check_fields(f"K4, {n} shards, vs plain under the same windows", got, ref)
+        same = [f for f in got._fields if torch.equal(getattr(got, f), getattr(whole, f))]
+        d = max(float((getattr(got, f) - getattr(whole, f)).abs().max()) for f in got._fields)
+        log(f"K4, {n} shards of {H // n} rows extended by {kk}: launches {run}; vs plain "
+            f"max |diff| {err:.3g}; vs the whole-image K4 max |diff| {d:.3g}, equal fields "
+            f"{len(same)} of {len(got._fields)}")
+        if run["k4"] != n or len(same) != len(got._fields):
+            raise AssertionError(f"K4, {n} shards: launches {run} or not the whole image's")
+        illum, var = whole.var_illum, whole.var_variance
+        reset_launches()
+        errs, diffs = [], []
+        for i in range(cfg.num_atrous_iterations):
+            step = 1 << i
+            ks = 2 * step + 1
+            full = ka.atrous_step(illum, var, *g_in, step, cfg)
+            got5 = sharded_stage(lambda s, win: ka.atrous_step(*s, step, cfg, row_window=win),
+                                 [illum, var, *g_in], n, ks)
+            ref5 = sharded_stage(lambda s, win: atrous_iteration(*s, step, cfg, row_window=win),
+                                 [illum, var, *g_in], n, ks)
+            errs.append(check_fields(f"K5, {n} shards, step {step}, vs plain",
+                                     StepOut(*got5), StepOut(*ref5)))
+            diffs.append(check_fields(f"K5, {n} shards, step {step}, vs the whole image",
+                                      StepOut(*got5), StepOut(*full)))
+            illum, var = full
+        run = launches()
+        log(f"K5, {n} shards: launches {run} (with the whole image's iterations), max |diff| "
+            f"vs plain {max(errs):.3g}, vs the whole image per step {diffs}")
+        if run["k5"] != (n + 1) * cfg.num_atrous_iterations:
+            raise AssertionError(f"K5, {n} shards: launches {run}")
+    # one shard's rows (the second of the last split), with and without the window
+    n = ROW_SHARDS[-1]
+    rows = H // n
+    cut = {name: slab(x, rows - kk, rows + 2 * kk) for name, x in k4_in.items()}
+    k4_win = kernel_ms(lambda: kr.reproject_variance_fused(cfg, row_window=(rows - kk, H), **cut))
+    k4_none = kernel_ms(lambda: kr.reproject_variance_fused(cfg, **cut))
+    k4_whole = kernel_ms(lambda: kr.reproject_variance_fused(cfg, **k4_in))
+    parts = []
+    for i in range(cfg.num_atrous_iterations):
+        step = 1 << i
+        ks = 2 * step + 1
+        cut5 = [slab(x, rows - ks, rows + 2 * ks)
+                for x in (whole.var_illum, whole.var_variance, *g_in)]
+        parts.append((kernel_ms(lambda: ka.atrous_step(*cut5, step, cfg,
+                                                       row_window=(rows - ks, H))),
+                      kernel_ms(lambda: ka.atrous_step(*cut5, step, cfg))))
+    log(f"row window ms (device work), shard 1 of {n} ({rows} rows): K4 on "
+        f"{rows + 2 * kk} rows {k4_win:.4f} with the window, {k4_none:.4f} without (the "
+        f"whole {H} rows {k4_whole:.4f}); K5 steps 1..{1 << (cfg.num_atrous_iterations - 1)} "
+        f"with / without " + ", ".join(f"{a:.4f} / {b:.4f}" for a, b in parts)
+        + f"; sum {sum(a for a, _ in parts):.4f} / {sum(b for _, b in parts):.4f}")
 
 
 def check_frame_walks(name, scene, cfg, tables, rays) -> None:
@@ -900,11 +1025,12 @@ def phase_cli() -> None:
         raise AssertionError(f"the CLI wrote an image of shape {img.shape}")
 
 
-def dist_frames(scene, cfg, mesh, frames: int, **cam_kw):
+def dist_frames(scene, cfg, mesh, frames: int, still_last: bool = False, **cam_kw):
     """`frames` moving frames of render_frame_sharded (launch counts set to
     0 just before and read just after) and the same frames of render_frame
     -> (sharded finals, single finals, sharded launches, ms per sharded
-    frame, per-frame (single-device coverage), last states)."""
+    frame, last states). still_last: the last frame repeats the camera with
+    static_camera=True (K4 at zero motion under the kernel denoiser)."""
     tables, pk = pt.pack_traversal(scene), pack_scene_tables(scene)
     cam = OrbitCamera(width=W, height=H, **cam_kw)
     state = shard_state(FrameState.initial(H, W), mesh)
@@ -912,11 +1038,13 @@ def dist_frames(scene, cfg, mesh, frames: int, **cam_kw):
     torch.cuda.synchronize()
     reset_launches()
     with torch.no_grad():
-        for _ in range(frames):
-            cam.rotate(0.5, 0.0)
+        for i in range(frames):
+            still = still_last and i == frames - 1
+            cam.rotate(0.0 if still else 0.5, 0.0)
             t0 = time.perf_counter()
             state, final, _ = render_frame_sharded(scene, cam.snapshot(), state, cfg, H, W,
-                                                   mesh, tables=tables, pk=pk)
+                                                   mesh, static_camera=still, tables=tables,
+                                                   pk=pk)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
             finals.append(final)
@@ -924,22 +1052,26 @@ def dist_frames(scene, cfg, mesh, frames: int, **cam_kw):
         cam = OrbitCamera(width=W, height=H, **cam_kw)
         single = FrameState.initial(H, W, mesh.device)
         outs = []
-        for _ in range(frames):
-            cam.rotate(0.5, 0.0)
+        for i in range(frames):
+            still = still_last and i == frames - 1
+            cam.rotate(0.0 if still else 0.5, 0.0)
             single, out = render_frame(scene, cam.snapshot(mesh.device), single, cfg, H, W,
-                                       tables=tables, pk=pk)
+                                       tables=tables, pk=pk, static_camera=still)
             outs.append(out)
     return finals, outs, run, ms, (state, single)
 
 
 def frame_walk_launches(outs, cfg, forest: bool) -> dict:
-    """The traversal launches of render_frame_sharded's frames on a world of
-    one: each frame's budget against its hit count (the single-device
-    frame's coverage: the same rays, in another order)."""
+    """The launches of render_frame_sharded's frames on a world of one: the
+    walks from each frame's budget against its hit count (the single-device
+    frame's coverage: the same rays, in another order), and K4 once and K5
+    once an iteration under the kernel denoiser."""
     want = dict(k1=0, k2=0, k3=0, k4=0, k5=0, k6=0, k7=0)
     budget = pt._compact_budget(W * H, cfg)
     for out in outs:
         add_launches(want, _frame_walks(forest, 0 < budget < round(float(out.coverage) * W * H)))
+        if cfg.enable_svgf and cfg.pallas_denoise:
+            add_launches(want, dict(k4=1, k5=cfg.num_atrous_iterations))
     return want
 
 
@@ -962,15 +1094,19 @@ def _phase_dist(scene, dev, mesh) -> tuple[dict, float, float]:
     log(f"dist: rank {mesh.rank} of {mesh.size} on {mesh.device}, backend "
         f"{dist.get_backend()} (NCCL puts one rank on a card)")
 
-    # the sharded frame: bit-equal to render_frame with the plain denoiser
-    # (the stages it runs) at compact_frac 0, close to it under compaction
-    for name, cfg in (("compact_frac 0", SLICE_PLAIN),
+    # the sharded frame under the slice config's denoiser (K4 and K5 on the
+    # rank's rows): bit-equal to render_frame at compact_frac 0, the last
+    # frame a still one (static_camera=True), close to it under compaction
+    for name, cfg in (("compact_frac 0", SLICE),
                       (f"compact_frac {DIST_COMPACT}",
-                       dataclasses.replace(SLICE_PLAIN, compact_frac=DIST_COMPACT))):
-        finals, outs, run, ms, (st, single) = dist_frames(scene, cfg, mesh, DIST_FRAMES)
+                       dataclasses.replace(SLICE, compact_frac=DIST_COMPACT))):
+        still = cfg.compact_frac == 0.0
+        finals, outs, run, ms, (st, single) = dist_frames(scene, cfg, mesh, DIST_FRAMES,
+                                                          still_last=still)
         add_launches(total, run)
         want = frame_walk_launches(outs, cfg, forest=False)
-        log(f"sharded frames, {name}: {DIST_FRAMES} moving at {W}x{H}, median "
+        log(f"sharded frames, {name}: {DIST_FRAMES} at {W}x{H} (moving"
+            f"{', the last still' if still else ''}), median "
             f"{statistics.median(ms):.3f} ms, launches {run} (want {want})")
         expect_launches(f"sharded frames, {name}", run, want)
         for i, (a, out) in enumerate(zip(finals, outs)):
@@ -987,8 +1123,7 @@ def _phase_dist(scene, dev, mesh) -> tuple[dict, float, float]:
 
     # the sharded frame on the 20k file scene: a forest, every walk K6
     file20 = file_scene(5, device=dev)
-    cfg = dataclasses.replace(DEFAULT, compact_frac=DIST_COMPACT, compact_auto=False,
-                              pallas_denoise=False)
+    cfg = dataclasses.replace(DEFAULT, compact_frac=DIST_COMPACT, compact_auto=False)
     finals, outs, run, ms, _ = dist_frames(file20, cfg, mesh, 1)
     add_launches(total, run)
     want = frame_walk_launches(outs, cfg, forest=True)
@@ -1072,10 +1207,19 @@ def _phase_dist(scene, dev, mesh) -> tuple[dict, float, float]:
     # wall, device ms and busy share: the sharded frame beside render_frame's
     runs = [FrameRun(scene, SLICE, "render_frame (K4, K5)"),
             FrameRun(scene, SLICE_PLAIN, "render_frame (plain denoiser)"),
-            ShardedRun(scene, SLICE_PLAIN, "render_frame_sharded (world of one)", mesh)]
+            ShardedRun(scene, SLICE, "render_frame_sharded (K4, K5; world of one)", mesh),
+            ShardedRun(scene, SLICE_PLAIN, "render_frame_sharded (plain stages)", mesh)]
     walls = [r.time_frames(DIST_TIMED_FRAMES) for r in runs]
     prof = [r.profile_frames(DIST_PROFILE_FRAMES, wall, Path("build/profile"))
             for r, wall in zip(runs, walls)]
+    for r, p in zip(runs, prof):
+        got = (p["events"]["K4"], p["events"]["K5"])
+        log(f"{r.tag}: the profile holds K4 {got[0]} and K5 {got[1]} of launches "
+            f"{p['launches']}, K4 {p['ours_ms']['K4']:.4f} and K5 {p['ours_ms']['K5']:.4f} "
+            f"device ms a frame; padding kernels the profiler lost {p['dropped']}, sessions "
+            f"{p['sessions']}")
+        if got != (p["launches"]["k4"], p["launches"]["k5"]):
+            raise AssertionError(f"{r.tag}: the profile misses K4 or K5")
     log("frames at 800x800, the default view (compact_frac 0): " + "; ".join(
         f"{r.tag}: wall median {p['wall_ms']:.3f} ms (min {min(w):.3f}, max {max(w):.3f}), "
         f"device {p['device_ms_per_frame']:.3f} ms, {p['kernels_per_frame']:.1f} kernels, "
@@ -1569,22 +1713,26 @@ def held_events(stages, spin: int = 1 << 26) -> tuple[list, float, bool]:
 
 
 def chain_profile(fn) -> None:
-    """One call of fn under torch.profiler behind a spin kernel, events
-    around it: the device kernels' own time, their span, the gaps between
-    them, memcpy/memset, the host's synchronising calls, and the events'
-    span beside the kernels' (a kernel the profiler did not record shows
-    as the difference)."""
+    """One call of fn under torch.profiler (profile_frames.profiled) behind
+    a spin kernel, events around it: the device kernels' own time, their
+    span, the gaps between them, memcpy/memset, the host's synchronising
+    calls, and the events' span beside the kernels' (a kernel the profiler
+    did not record shows as the difference). Fails unless the profile holds
+    every K4 and K5 launch."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+
+    def call():
+        reset_launches()
         torch.cuda._sleep(1 << 26)
         start.record()
         fn()
         end.record()
-        torch.cuda.synchronize()
+
+    prof, _, lost, sessions = profiled(call)
+    run = launches()
     events = prof.events()
     work = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.time_range.elapsed_us() < 20_000),  # the spin takes ~34 ms
+                   and "spin_kernel" not in e.name),
                   key=lambda e: e.time_range.start)
     syncs = {}
     for e in events:
@@ -1610,7 +1758,11 @@ def chain_profile(fn) -> None:
         f"their own time {own / 1e3:.4f} ms, span {span / 1e3:.4f} ms; the events' span "
         f"{start.elapsed_time(end):.4f} ms; {len(gaps)} gaps, {sum(gaps) / 1e3:.4f} ms "
         f"in all, median {gaps[len(gaps) // 2]:.2f} us, largest {gaps[-1]:.2f} us; host "
-        f"syncs {syncs} (one ends the profile)")
+        f"syncs {syncs} (one ends the profile); padding kernels the profiler lost "
+        f"{lost} of {SESSION_PAD}, sessions {sessions}")
+    if (ours["reproject_variance"], ours["atrous_step"]) != (run["k4"], run["k5"]):
+        raise AssertionError(f"the chain's profile holds K4 {ours['reproject_variance']} and "
+                             f"K5 {ours['atrous_step']} of launches {run}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     log("bench 1080p chain, its largest device events: "
         + "; ".join(f"{name[:90]} x{n} {us / 1e3:.4f} ms" for name, (n, us) in top))
@@ -1651,8 +1803,8 @@ def bench_chain_against_plain(chain_ms: float) -> float:
     out = {}
     stages = [
         lambda: out.update(k4=kr.reproject_variance_fused(cfg, **k4_in)),
-        lambda: out.update(k5=ka.atrous_chain(
-            out["k4"].var_illum, out["k4"].var_variance, k4_in["normal"],
+        lambda: out.update(k5=ka.chain(
+            ka.atrous_step, out["k4"].var_illum, out["k4"].var_variance, k4_in["normal"],
             k4_in["linear_z"], k4_in["fwidth_z"], cfg)[0][0]),
         lambda: out.update(mod=modulate(out["k5"], alb, emi, gbuf.linear_z)),
         lambda: taa(out["mod"], st.taa_color, gbuf.velocity, gbuf.linear_z, st.frame_idx)]
@@ -1914,6 +2066,7 @@ def main() -> None:
         raise AssertionError(f"ptxas / sass report: kernels missing {missing}, "
                              f"FP64 instructions {fp64}")
 
+
     def smem(prefix: str) -> dict:
         """{kernel: static shared memory a block} of the kernel or its
         instances (K5 has one per tile shape); none is dynamic."""
@@ -1998,8 +2151,8 @@ def main() -> None:
     # ---- 4. K5: the 5-iteration chain on K4's output
     k5_args = (k4.var_illum, k4.var_variance, k4_in["normal"], k4_in["linear_z"],
                k4_in["fwidth_z"], SLICE)
-    (fi, fv), (ti, tv) = ka.atrous_chain(*k5_args)
-    ((ri, rv), (rti, rtv)), k5_plain_ms = once_ms(lambda: ka.atrous_chain_plain(*k5_args))
+    (fi, fv), (ti, tv) = ka.chain(ka.atrous_step, *k5_args)
+    ((ri, rv), (rti, rtv)), k5_plain_ms = once_ms(lambda: ka.chain(atrous_iteration, *k5_args))
     k5_err = check_fields("K5 vs plain", ChainOut(fi, fv, ti, tv),
                           ChainOut(ri, rv, rti, rtv))
     n_iter = SLICE.num_atrous_iterations
@@ -2010,6 +2163,9 @@ def main() -> None:
     log(f"K5: chain of {n_iter} {k5_ms:.4f} ms ({step_increments(k5_chain_ms)} ms; shared "
         f"memory a block {smem('atrous_step')} bytes), plain {k5_plain_ms:.1f} ms, "
         f"bound {k5_bound[0]:.4f} ms by {k5_bound[1]}")
+
+    # ---- 4b. K4 and K5 with a sharded frame's row window
+    phase_row_window(k4_in, SLICE)
 
     # ---- 5. the main path: moving-camera frames with SVGF + TAA
     r = Renderer(scene, SLICE)
@@ -2282,7 +2438,7 @@ def main() -> None:
         entry("K4 reproject_variance_fused", "tpuray_torch/csrc/reproject.cu",
               "tpuray/kernels/reproject_pallas.py:94", "k4", k4_err, k4_ms,
               k4_plain_ms, k4_bound),
-        entry("K5 atrous_chain", "tpuray_torch/csrc/atrous.cu",
+        entry("K5 atrous_step", "tpuray_torch/csrc/atrous.cu",
               "tpuray/kernels/atrous_pallas.py:99", "k5", k5_err, k5_ms, k5_plain_ms,
               k5_bound),
         entry("K6 trace_chunked", "tpuray_torch/csrc/trace_chunked.cu",

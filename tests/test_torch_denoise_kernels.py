@@ -3,7 +3,7 @@ run in interpret mode.
 
 On CPU tensors the wrappers run their plain versions and count no launch.
 
-- K5 (kernels/atrous.py:atrous_chain) against
+- K5 (kernels/atrous.py:atrous_step, chained) against
   tpuray.kernels.atrous_pallas.atrous_chain(interpret=True) at the size of
   tests/test_atrous_pallas.py, under both quirk settings: rtol 2e-5 /
   atol 2e-5, that test's own tolerance. The two sides differ by last-bit
@@ -62,9 +62,9 @@ def test_k5_chain_matches_pallas(quirks):
         JRenderConfig(num_atrous_iterations=3, reference_quirks=quirks),
         interpret=True)
     atrous.reset_launches()
-    (gi, gv), (gti, gtv) = atrous.atrous_chain(
-        *map(_t, args), RenderConfig(num_atrous_iterations=3,
-                                     reference_quirks=quirks))
+    (gi, gv), (gti, gtv) = atrous.chain(
+        atrous.atrous_step, *map(_t, args),
+        RenderConfig(num_atrous_iterations=3, reference_quirks=quirks))
     assert atrous.LAUNCHES["k5"] == 0
     for got, ref, name in ((gi, ri, "illum"), (gv, rv, "variance"),
                            (gti, rti, "tap illum"), (gtv, rtv, "tap variance")):
@@ -76,8 +76,8 @@ def test_k5_tap_beyond_the_chain_is_its_input():
     rng = np.random.default_rng(3)
     args = [_t(rng.random(s).astype(np.float32))
             for s in ((8, 8, 3), (8, 8), (8, 8, 3), (8, 8), (8, 8))]
-    _, (ti, tv) = atrous.atrous_chain(
-        *args, RenderConfig(num_atrous_iterations=1, history_atrous_tap=1))
+    _, (ti, tv) = atrous.chain(
+        atrous.atrous_step, *args, RenderConfig(num_atrous_iterations=1, history_atrous_tap=1))
     assert ti is args[0] and tv is args[1]
 
 

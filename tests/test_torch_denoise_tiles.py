@@ -19,7 +19,11 @@ tests/test_torch_denoise_kernels.py hold against the JAX package:
 Cases: ragged sizes (61 x 97, and 1080 rows as 1920 x 1080 has), images
 smaller than the halo (5 x 7 at step 16; K4 at 2 x 2), an all-sky tile,
 reference_quirks on and off, the history tap at 0, 1, 4 and past the
-chain, and K4 with no pixel and with every pixel taking the fallback.
+chain, K4 with no pixel and with every pixel taking the fallback, and the
+row window of a sharded frame's rank (dist/frame.py): a slab of a taller
+image, its edge rows replicated past the image as the first and last rank
+hold them, staged and blurred with clamps in its own rows and masked with
+the image's rows, against the plain versions with the same window.
 """
 import math
 import re
@@ -68,9 +72,13 @@ def classes_x(step: int) -> int:
     return 8 if step % 8 == 0 else 4 if step % 4 == 0 else 2 if step % 2 == 0 else 1
 
 
-def k5_step_copy(illum, variance, normal, linear_z, fwidth_z, step, cfg):
-    """One a-trous iteration as csrc/atrous.cu:atrous_step schedules it."""
+def k5_step_copy(illum, variance, normal, linear_z, fwidth_z, step, cfg, row_window=None):
+    """One a-trous iteration as csrc/atrous.cu:atrous_step schedules it;
+    row_window=(row0, global_h): the taps' inside bits take the image's
+    rows as local bounds [-row0, global_h - row0), as the entry point
+    passes them."""
     h, w = variance.shape
+    row0, gh = row_window if row_window is not None else (0, h)
     s, cx = step, classes_x(step)
     lx = TW // cx
     sx = lx + 2 * R
@@ -132,7 +140,7 @@ def k5_step_copy(illum, variance, normal, linear_z, fwidth_z, step, cfg):
                        + torch.clamp(x + xx * s, 0, w - 1))
             assert torch.equal(q, iv[clamped]) and torch.equal(tn, nz[clamped])
             inside = ((x + xx * s >= 0) & (x + xx * s < w)
-                      & (y + yy * s >= 0) & (y + yy * s < h))
+                      & (y + yy * s >= -row0) & (y + yy * s < gh - row0))
             inv_d = rdiv(1.0, phi_depth * _f32(math.sqrt(xx * xx + yy * yy)))
             w_normal = pow_weight(n[:, 0] * tn[:, 0] + n[:, 1] * tn[:, 1]
                                   + n[:, 2] * tn[:, 2], cfg.sigma_n)
@@ -181,6 +189,46 @@ def test_k5_tiles_match_plain(h, w, steps, quirks):
             assert float((got[0] - args[0]).abs().max()) > 0.1  # the filter did work
 
 
+def _slab(x, row0, rows):
+    """Rows row0 .. row0 + rows - 1 of a full-image tensor or array, its
+    edge rows replicated past the image (what dist/frame.py:_halo_rows
+    gives the first and the last rank)."""
+    idx = np.clip(np.arange(row0, row0 + rows), 0, x.shape[0] - 1)
+    if isinstance(x, np.ndarray):
+        return np.ascontiguousarray(x[idx])
+    return x.index_select(0, torch.from_numpy(idx).to(x.device)).contiguous()
+
+
+def _sharded_stage(fn, xs, shards, k):
+    """fn(slabs, (row0, H)) -> a tuple of tensors, run on each of `shards`
+    row shards of the full-image tensors xs (a dict or a list) extended by
+    k rows a side, cropped and stitched -> the full-image tuple: a sharded
+    frame's stage emulated in one process."""
+    h = next(iter(xs.values() if isinstance(xs, dict) else xs)).shape[0]
+    rows = h // shards
+    parts = []
+    for r in range(shards):
+        row0 = r * rows - k
+        cut = ({n: _slab(x, row0, rows + 2 * k) for n, x in xs.items()}
+               if isinstance(xs, dict) else [_slab(x, row0, rows + 2 * k) for x in xs])
+        parts.append(fn(cut, (row0, h)))
+    return tuple(torch.cat([p[i][k:-k] for p in parts]) for i in range(len(parts[0])))
+
+
+@pytest.mark.parametrize("row0,rows", [(8, 40), (-4, 40), (37, 40)])
+@pytest.mark.parametrize("steps", [(1, 2, 4), (8, 16)])
+def test_k5_tiles_row_window(row0, rows, steps):
+    """A halo-extended slab of a 61 x 97 image (row0 -4 and 37: the image's
+    first and last rows replicated past it)."""
+    cfg = RenderConfig()
+    args = [_slab(x, row0, rows) for x in _k5_inputs(6, 61, 97)]
+    for s in steps:
+        got = k5_step_copy(*args, s, cfg, row_window=(row0, 61))
+        ref = atrous_iteration(*args, step=s, cfg=cfg, row_window=(row0, 61))
+        _close(got[0], ref[0], f"illum, step {s}")
+        _close(got[1], ref[1], f"variance, step {s}")
+
+
 def test_k5_tiles_other_sigma_n():
     """sigma_n = 3 (no power of two): the kernel's powf path."""
     cfg = RenderConfig(sigma_n=3.0)
@@ -212,16 +260,15 @@ def test_k5_chain_history_tap(tap):
     of tap + 1 iterations' output."""
     cfg = RenderConfig(history_atrous_tap=tap)
     il, var, n, z, fwz = _k5_inputs(5, 37, 45)
-    (gi, gv), (ti, tv) = ka.run_chain(
-        lambda a, b, s: k5_step_copy(a, b, n, z, fwz, s, cfg), il, var, cfg)
-    (ri, rv), _ = ka.atrous_chain(il, var, n, z, fwz, cfg)
+    (gi, gv), (ti, tv) = ka.chain(k5_step_copy, il, var, n, z, fwz, cfg)
+    (ri, rv), _ = ka.chain(atrous_iteration, il, var, n, z, fwz, cfg)
     _close(gi, ri, "illum")
     _close(gv, rv, "variance")
     if tap >= cfg.num_atrous_iterations:
         assert ti is il and tv is var
         return
-    (ri, rv), _ = ka.atrous_chain(il, var, n, z, fwz,
-                                  RenderConfig(num_atrous_iterations=tap + 1))
+    (ri, rv), _ = ka.chain(atrous_iteration, il, var, n, z, fwz,
+                           RenderConfig(num_atrous_iterations=tap + 1))
     _close(ti, ri, "tap illum")
     _close(tv, rv, "tap variance")
 
@@ -239,12 +286,15 @@ def ring_point(k: int) -> tuple[int, int]:
     return (c if c < HR else BW + c), HR + k // (2 * HR)
 
 
-def k4_fallback_copy(cfg, **inputs):
+def k4_fallback_copy(cfg, row_window=None, **inputs):
     """(var_illum, var_variance, blocks that staged a tile, blocks) as
     csrc/reproject.cu:reproject_variance schedules the fallback, on the
-    plain reprojection (the kernel's reproject_px repeats its op order)."""
-    rep = reproject(**inputs, cfg=cfg)
+    plain reprojection (the kernel's reproject_px repeats its op order);
+    row_window=(row0, global_h): the tile clamps to the rows in memory, the
+    inside bits take image rows."""
+    rep = reproject(**inputs, cfg=cfg, row_window=row_window)
     h, w = rep.history_len.shape
+    row0, gh = row_window if row_window is not None else (0, h)
     sw, sh = BW + 2 * HR, BH + 2 * HR
     own = [(ty + HR) * sw + tx + HR for ty in range(BH) for tx in range(BW)]
     ring = [ring_point(k) for k in range(sw * sh - BW * BH)]
@@ -297,7 +347,8 @@ def k4_fallback_copy(cfg, **inputs):
             w_z = torch.where(phi_d == 0.0, 0.0, torch.abs(z - t_z[blk, e]) / phi_d)
             w_l = torch.abs(l_c - t_l[blk, e]) / phi_l
             wgt = torch.exp(-w_l - w_z) * w_normal
-            inside = (x + dx >= 0) & (x + dx < w) & (y + dy >= 0) & (y + dy < h)
+            inside = ((x + dx >= 0) & (x + dx < w)
+                      & (y + row0 + dy >= 0) & (y + row0 + dy < gh))
             wgt = torch.where(inside, wgt, 0.0)
             sum_w = sum_w + wgt
             s_il = s_il + wgt[:, None] * t_il[blk, e]
@@ -360,3 +411,19 @@ def test_k4_tiles_match_plain(h, w, case, quirks):
         assert bool(needs[a["linear_z"] != 1.0].all()) and staged == blocks
     else:
         assert 0 < staged and bool(needs.any()) and not bool(needs.all())
+
+
+@pytest.mark.parametrize("row0,rows", [(12, 30), (-7, 30), (38, 30)])
+def test_k4_tiles_row_window(row0, rows):
+    """A halo-extended slab of a 61 x 97 image (row0 -7 and 38: the image's
+    first and last rows replicated past it)."""
+    cfg = RenderConfig()
+    a = {k: _slab(v, row0, rows) for k, v in _k4_inputs(9, 61, 97, "mixed").items()}
+    win = (row0, 61)
+    got_il, got_v, staged, _ = k4_fallback_copy(cfg, row_window=win, **a)
+    rep = reproject(**a, cfg=cfg, row_window=win)
+    ref = estimate_variance(rep.illum, rep.variance, rep.moments, rep.history_len,
+                            a["normal"], a["linear_z"], a["fwidth_z"], cfg, row_window=win)
+    _close(got_il, ref.illum, "var_illum")
+    _close(got_v, ref.variance, "var_variance")
+    assert staged > 0

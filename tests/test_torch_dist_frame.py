@@ -1,7 +1,8 @@
 """The port's fully sharded frame (tpuray_torch/dist/frame.py) on the CPU:
 1, 2 and 4 gloo ranks against the port's single-device frame and against
-tpuray's sharded frame, and each row-windowed denoise stage against its
-tpuray function.
+tpuray's sharded frame, under each denoiser (pallas_denoise True: K4 and
+K5, here their plain versions; False: the plain stages), and each
+row-windowed denoise stage against its tpuray function.
 
 The ranks run as OS processes of `python -m tpuray_torch.dist.dryrun`
 (dryrun.launch: a file store, one torch thread each, a hard timeout that
@@ -10,10 +11,12 @@ an npz that this file reads. A world of one runs in this process with no
 process group. Sizes: dryrun.CHECK_* (64x64, depth 1, two a-trous
 iterations, make_test_scene(subdiv=1, env_width=32), halo 8).
 
-- compact_frac=0: the sharded frames are bit-equal to render_frame
-  (pallas_denoise=False: the plain stages, which the sharded frame runs)
-  at every world size, two moving frames and a still one: final,
-  pt_color and the state (history_len included).
+- compact_frac=0: the sharded frames are bit-equal to render_frame under
+  the same denoiser at every world size, two moving frames and a still
+  one: final, pt_color and the state (history_len included). The kernel
+  denoiser's K4 reprojects the 3 rows past a shard's edges itself, on rows
+  extended by halo + 3, where the plain stages take them from the
+  neighbour: the same frame wherever the history taps stay inside the halo.
 - compact_frac=0.5: each rank budgets its own hits, so the frames may
   differ from the single-device frame by the grazing-shadow outliers of
   tests/test_dist_frame.py (its image tolerance); mesh 2 against mesh 4
@@ -31,12 +34,19 @@ iterations, make_test_scene(subdiv=1, env_width=32), halo 8).
   same pixels, and the port's sharded frame matches that single-device
   frame with the image tolerance. Bound: MOVING_FRAC, MOVING_MAX.
 - the row-windowed stages on a halo-extended slab of a 32x48 image (row0
-  8 and -4, the latter with replicated edge rows as rank 0 holds them):
+  8, -4 and 20, -4 with replicated edge rows as rank 0 holds them):
   inside_mask exact, estimate_variance, atrous_iteration and the static
   reproject within rtol/atol 2e-5 of tpuray's (tests/test_torch_denoise.py),
   TAA within its tolerance; the port's moving reproject against its own
   full-image result bit for bit where the slab holds every tap, and
-  against tpuray's tile-windowed one on the slab's interior.
+  against tpuray's tile-windowed one on the slab's interior; K4's and K5's
+  wrappers (kernels/reproject.py, kernels/atrous.py:atrous_step) with a
+  row window against reproject + estimate_variance and atrous_iteration
+  composed on the same slab (exact) and against the whole image where every
+  tap lies inside; and a motion larger than the halo: K4's path fails its
+  reprojection exactly where its plain version does, at the pixels whose
+  taps leave its rows, and differs from the plain stages' sharded frame
+  only where the taps travel farther than the halo.
 """
 import concurrent.futures
 import dataclasses
@@ -62,6 +72,8 @@ from tpuray.scene.config import RenderConfig as JRenderConfig
 
 from tpuray_torch.denoise import atrous, common, reproject, taa, variance
 from tpuray_torch.dist import dryrun
+from tpuray_torch.kernels import atrous as katrous
+from tpuray_torch.kernels import reproject as kreproject
 from tpuray_torch.dist.frame import (
     STATE_IMG_FIELDS, _halo_rows, render_frame_sharded, shard_state)
 from tpuray_torch.dist.sharding import make_mesh
@@ -71,6 +83,7 @@ from tpuray_torch.scene.camera import OrbitCamera
 from tpuray_torch.scene.config import RenderConfig
 
 from tests.test_torch_denoise import _motion, gbuffer_arrays, reproject_arrays
+from tests.test_torch_denoise_tiles import _sharded_stage, _slab
 
 torch.set_num_threads(2)
 
@@ -120,46 +133,81 @@ def _single(cfg, rotations, static_last=False):
 
 @pytest.fixture(scope="module")
 def single():
-    cfg = RenderConfig(width=N, height=N, **dryrun.CHECK_CFG)
-    with torch.no_grad():
-        moving, state = _single(cfg, dryrun.CHECK_ROTATIONS)
-        still, _ = _single(cfg, (0.0, 0.0), static_last=True)
-        compact, _ = _single(dataclasses.replace(cfg, compact_frac=dryrun.CHECK_COMPACT),
-                             dryrun.CHECK_ROTATIONS)
-    return dict(moving=moving, state=state, still=still, compact=compact)
+    """{denoiser: render_frame's frames under it} (dryrun.DENOISERS)."""
+    res = {}
+    for den, pallas in dryrun.DENOISERS.items():
+        cfg = RenderConfig(width=N, height=N, pallas_denoise=pallas, **dryrun.CHECK_CFG)
+        with torch.no_grad():
+            moving, state = _single(cfg, dryrun.CHECK_ROTATIONS)
+            still, _ = _single(cfg, (0.0, 0.0), static_last=True)
+            compact, _ = _single(dataclasses.replace(cfg, compact_frac=dryrun.CHECK_COMPACT),
+                                 dryrun.CHECK_ROTATIONS)
+        res[den] = dict(moving=moving, state=state, still=still, compact=compact)
+    return res
+
+
+DENOISERS = list(dryrun.DENOISERS)
+
+
+def _assert_bit_equal_single(z, single, den):
+    """The world's moving and still frames under denoiser `den` bit-equal
+    to render_frame's."""
+    ref = single[den]
+    for i, out in enumerate(ref["moving"]):
+        np.testing.assert_array_equal(z[f"{den}_moving_final_{i}"], out.final.numpy(),
+                                      err_msg=f"frame {i} final")
+        np.testing.assert_array_equal(z[f"{den}_moving_pt_{i}"], out.pt_color.numpy(),
+                                      err_msg=f"frame {i} pt_color")
+    for field in ("history_len", "illum_hist", "moments", "taa_color"):
+        np.testing.assert_array_equal(z[f"{den}_moving_state_{field}"],
+                                      getattr(ref["state"], field).numpy(),
+                                      err_msg=field)
+    assert z[f"{den}_moving_state_history_len"].max() == 2.0  # the history carried over
+    np.testing.assert_array_equal(z[f"{den}_static_final_1"], ref["still"][1].final.numpy())
 
 
 @pytest.mark.parametrize("world", [1, 2, 4])
 def test_sharded_frames_bit_equal_single(sharded, single, world):
-    z = sharded[world]
-    assert int(z["world"]) == world
-    for i, out in enumerate(single["moving"]):
-        np.testing.assert_array_equal(z[f"moving_final_{i}"], out.final.numpy(),
-                                      err_msg=f"frame {i} final")
-        np.testing.assert_array_equal(z[f"moving_pt_{i}"], out.pt_color.numpy(),
-                                      err_msg=f"frame {i} pt_color")
-    for field in ("history_len", "illum_hist", "moments", "taa_color"):
-        np.testing.assert_array_equal(z[f"moving_state_{field}"],
-                                      getattr(single["state"], field).numpy(),
-                                      err_msg=field)
-    assert z["moving_state_history_len"].max() == 2.0  # the history carried over
-    np.testing.assert_array_equal(z["static_final_1"], single["still"][1].final.numpy())
+    """The plain stages (pallas_denoise=False)."""
+    assert int(sharded[world]["world"]) == world
+    _assert_bit_equal_single(sharded[world], single, "plain")
 
 
 @pytest.mark.parametrize("world", [1, 2, 4])
-def test_compacted_sharded_frames(sharded, single, world):
-    for i, out in enumerate(single["compact"]):
-        got = sharded[world][f"compact_final_{i}"]
+def test_kernel_denoiser_sharded(sharded, single, world):
+    """RenderConfig()'s denoiser, K4 once on each rank's rows and K5 once
+    an iteration (their plain versions here), equals render_frame under
+    the same config bit for bit; with SVGF off no denoiser runs."""
+    assert int(sharded[world]["world"]) == world
+    _assert_bit_equal_single(sharded[world], single, "kernels")
+    if world == 1:
+        mesh = make_mesh("cpu")
+        cfg = RenderConfig(width=16, height=16, max_tracing_depth=1, num_atrous_iterations=2,
+                           enable_svgf=False)
+        state = shard_state(FrameState.initial(16, 16), mesh)
+        with torch.no_grad():
+            _, final, pt_color = render_frame_sharded(
+                dryrun.check_scene("cpu"), OrbitCamera(width=16, height=16).snapshot(),
+                state, cfg, 16, 16, mesh, halo=8)
+        assert torch.equal(final, pt_color)
+
+
+@pytest.mark.parametrize("den", DENOISERS)
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_compacted_sharded_frames(sharded, single, world, den):
+    for i, out in enumerate(single[den]["compact"]):
+        got = sharded[world][f"{den}_compact_final_{i}"]
         assert np.isfinite(got).all()
         assert_images_close(got, out.final.numpy(), msg=f"world {world} frame {i}")
 
 
-def test_mesh_2_vs_4(sharded):
+@pytest.mark.parametrize("den", DENOISERS)
+def test_mesh_2_vs_4(sharded, den):
     two, four = sharded[2], sharded[4]
     for key in two:
-        if key.startswith(("moving_", "static_")):
+        if key.startswith((f"{den}_moving_", f"{den}_static_")):
             np.testing.assert_array_equal(two[key], four[key], err_msg=key)
-        elif key.startswith("compact_"):
+        elif key.startswith(f"{den}_compact_"):
             assert_images_close(two[key], four[key], msg=key)
 
 
@@ -197,17 +245,20 @@ def tpuray_frames():
                 still=run((0.0, 0.0), static_last=True), exact=exact)
 
 
-def test_still_frame_matches_tpuray(sharded, tpuray_frames):
-    assert_images_close(sharded[4]["static_final_1"], tpuray_frames["still"][1],
+@pytest.mark.parametrize("den", DENOISERS)
+def test_still_frame_matches_tpuray(sharded, tpuray_frames, den):
+    assert_images_close(sharded[4][f"{den}_static_final_1"], tpuray_frames["still"][1],
                         msg="still frame, port vs tpuray")
 
 
-def test_moving_frames_match_tpuray(sharded, tpuray_frames):
+@pytest.mark.parametrize("den", DENOISERS)
+def test_moving_frames_match_tpuray(sharded, tpuray_frames, den):
     """Frame 0 has no history: the image tolerance. Frame 1 reads the
     history: within the image tolerance of tpuray's exact read, and within
     the tile-windowed read's divergence of tpuray's sharded frame, on the
-    pixels where tpuray's two reads differ."""
-    port = [sharded[4][f"moving_final_{i}"] for i in range(2)]
+    pixels where tpuray's two reads differ. tpuray's config is the port's:
+    its sharded frame denoises with XLA's stencils either way."""
+    port = [sharded[4][f"{den}_moving_final_{i}"] for i in range(2)]
     assert_images_close(port[0], tpuray_frames["moving"][0], msg="frame 0, port vs tpuray")
     assert_images_close(port[1], tpuray_frames["exact"][1],
                         msg="frame 1, port vs tpuray's single-device frame")
@@ -225,14 +276,6 @@ def test_moving_frames_match_tpuray(sharded, tpuray_frames):
 
 H, W = 32, 48
 WINDOWS = [(8, 16), (-4, 16), (20, 16)]  # (row0, rows) of the extended slab
-
-
-def _slab(a, row0, rows):
-    """Rows row0 .. row0 + rows - 1 of a full-image array, the image's edge
-    rows replicated past its border (what _halo_rows gives rank 0 and the
-    last rank)."""
-    idx = np.clip(np.arange(row0, row0 + rows), 0, a.shape[0] - 1)
-    return np.ascontiguousarray(a[idx])
 
 
 def _t(a):
@@ -393,6 +436,119 @@ def test_taa_row_window(row0, rows, static):
         np.testing.assert_allclose(got.numpy()[0], s["cur_color"][0], rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("row0,rows", WINDOWS)
+def test_k4_row_window(row0, rows):
+    """K4's wrapper with a row window (its plain version on the CPU, no
+    launch) is reproject + estimate_variance composed on the same slab with
+    the same window, exactly; and the whole image's K4 bit for bit on the
+    rows whose 7x7 fallback reads only reprojections whose taps lie in the
+    slab (the taps of row y span rows y .. y + 3)."""
+    rng = np.random.default_rng(61)
+    a = _reproject_inputs(rng, _motion(-2.25, -1.5, H, W))
+    s = {k: _t(_slab(v, row0, rows)) for k, v in a.items()}
+    win, cfg = (row0, H), RenderConfig()
+    kreproject.reset_launches()
+    got = kreproject.reproject_variance_fused(cfg, row_window=win, **s)
+    assert kreproject.LAUNCHES["k4"] == 0
+    rep = reproject.reproject(**s, cfg=cfg, row_window=win)
+    var = variance.estimate_variance(rep.illum, rep.variance, rep.moments, rep.history_len,
+                                     s["normal"], s["linear_z"], s["fwidth_z"], cfg,
+                                     row_window=win)
+    composed = dict(rep_illum=rep.illum, rep_variance=rep.variance, var_illum=var.illum,
+                    var_variance=var.variance, moments=rep.moments,
+                    history_len=rep.history_len)
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), composed[f]), f
+    full = kreproject.reproject_variance_fused(cfg, **{k: _t(v) for k, v in a.items()})
+    inner = _inner(row0, rows, 3, 6)
+    for f in got._fields:
+        np.testing.assert_array_equal(getattr(got, f).numpy()[inner],
+                                      _full_rows(getattr(full, f), row0, rows)[inner],
+                                      err_msg=f)
+    assert (got.history_len.numpy()[inner] < 4).any()  # the fallback ran there
+
+
+@pytest.mark.parametrize("row0,rows", WINDOWS[:2])
+@pytest.mark.parametrize("step", [1, 2])
+def test_k5_step_row_window(row0, rows, step):
+    """K5's one-iteration wrapper with a row window (its plain version on
+    the CPU, no launch) is atrous_iteration with that window, exactly, and
+    the whole image's iteration bit for bit 2 * step + 1 rows in."""
+    rng = np.random.default_rng(71 + step)
+    g = gbuffer_arrays(rng, H, W, sky_rows=2)
+    args = [rng.random((H, W, 3)).astype(np.float32),
+            rng.random((H, W)).astype(np.float32),
+            g["normal"], g["linear_z"], g["fwidth_z"]]
+    s = [_t(_slab(x, row0, rows)) for x in args]
+    win, cfg = (row0, H), RenderConfig()
+    katrous.reset_launches()
+    got = katrous.atrous_step(*s, step, cfg, row_window=win)
+    assert katrous.LAUNCHES["k5"] == 0
+    ref = atrous.atrous_iteration(*s, step=step, cfg=cfg, row_window=win)
+    full = katrous.atrous_step(*map(_t, args), step, cfg)
+    inner = _inner(row0, rows, 2 * step + 1, 2 * step + 1)
+    for a, b, f in zip(got, ref, full):
+        assert torch.equal(a, b)
+        np.testing.assert_array_equal(a.numpy()[inner], _full_rows(f, row0, rows)[inner])
+
+
+def test_k4_motion_beyond_the_halo():
+    """History 6.5 rows below every pixel, 2 shards of 16 rows, halo 4: the
+    taps of row y span rows y + 5 .. y + 8 (rescue included). The kernel
+    path (K4 on each shard's rows extended by halo + 3, then cropped, as
+    svgf_pipeline runs it) fails its reprojection exactly where its plain
+    version (reproject + estimate_variance composed on those rows) does,
+    and beyond the whole image's failures exactly on shard 0's last row,
+    whose taps reach row 23, past the 23 rows the shard extends to. The
+    plain stages' sharded frame (reproject on the shard extended by the
+    halo, the fallback's 3 rows from the neighbour) also fails rows 12-14,
+    whose taps reach rows 20-22; the two differ there and on the fallback
+    pixels within 3 rows of them (rows 9-18), nowhere else."""
+    halo, cfg = 4, RenderConfig()
+    rng = np.random.default_rng(81)
+    # a history of 1 to 5 frames: history_len 1 marks a failed reprojection
+    a = reproject_arrays(rng, _motion(0.25, -6.5, H, W), H, W,
+                         hist=1 + np.floor(rng.random((H, W)) * 5))
+    names = kreproject.INPUT_NAMES
+
+    def k4(s, win):
+        return tuple(kreproject.reproject_variance_fused(cfg, row_window=win, **s))
+
+    def composed(s, win):
+        rep = reproject.reproject(**s, cfg=cfg, row_window=win)
+        var = variance.estimate_variance(rep.illum, rep.variance, rep.moments,
+                                         rep.history_len, s["normal"], s["linear_z"],
+                                         s["fwidth_z"], cfg, row_window=win)
+        return (rep.illum, rep.variance, var.illum, var.variance, rep.moments,
+                rep.history_len)
+
+    ta = {n: _t(v) for n, v in a.items()}
+    kern = _sharded_stage(k4, ta, 2, halo + 3)
+    plain = _sharded_stage(composed, ta, 2, halo + 3)
+    for x, y, f in zip(kern, plain, kreproject.FusedOutput._fields):
+        assert torch.equal(x, y), f
+    hl = kern[-1].numpy()
+    whole = kreproject.reproject_variance_fused(cfg, **{n: _t(a[n]) for n in names})
+    hl_whole = whole.history_len.numpy()
+    assert ((hl_whole == 1) <= (hl == 1)).all()
+    extra = np.nonzero(((hl == 1) & (hl_whole != 1)).any(1))[0]
+    np.testing.assert_array_equal(extra, [15])
+
+    # the plain stages' sharded frame: the reprojection on the shard and its
+    # halo, the variance fallback on the stitched reprojection
+    rep = _sharded_stage(lambda s, win: tuple(reproject.reproject(**s, cfg=cfg,
+                                                                  row_window=win)),
+                         ta, 2, halo)
+    var = variance.estimate_variance(*rep, _t(a["normal"]), _t(a["linear_z"]),
+                                     _t(a["fwidth_z"]), cfg)
+    np.testing.assert_array_equal(
+        np.nonzero((rep[3].numpy() != hl).any(1))[0], [12, 13, 14])
+    assert (rep[3].numpy()[12:15] == 1).all() and (hl[12:15] > 1).all()
+    differs = (var.illum != kern[2]).any(-1) | (var.variance != kern[3])
+    rows = np.nonzero(differs.numpy().any(1))[0]
+    assert len(rows) and rows.min() >= 9 and rows.max() <= 18, rows
+
+
 @pytest.mark.parametrize("k", [1, 3])
 def test_halo_rows_world_of_one(k):
     """A world of one replicates its edge rows, as shift2d clamps."""
@@ -415,20 +571,16 @@ def test_layout_checks():
                              .snapshot(), state, cfg, 16, 16, mesh, halo=4)
 
 
-def test_kernel_denoiser_refused():
-    """The sharded frame runs the plain denoise stages (K4 and K5 take no
-    row window), so a config that asks for the kernels raises; with SVGF
-    off no denoiser runs and the config is taken."""
+@pytest.mark.parametrize("pallas", [True, False])
+def test_layout_holds_k4_reach(pallas):
+    """K4 reads halo + 3 rows past a shard: a shard of 16 rows holds a halo
+    of 14 for the plain stages, not for K4."""
+    from tpuray_torch.dist.frame import _check_layout
     mesh = make_mesh("cpu")
-    cfg = RenderConfig(width=16, height=16, max_tracing_depth=1, num_atrous_iterations=2)
-    assert cfg.pallas_denoise
-    scene = dryrun.check_scene("cpu")
-    cam = OrbitCamera(width=16, height=16).snapshot()
-    state = shard_state(FrameState.initial(16, 16), mesh)
-    with pytest.raises(ValueError, match="pallas_denoise=False"):
-        render_frame_sharded(scene, cam, state, cfg, 16, 16, mesh, halo=8)
-    with torch.no_grad():
-        _, final, pt_color = render_frame_sharded(
-            scene, cam, state, dataclasses.replace(cfg, enable_svgf=False), 16, 16, mesh,
-            halo=8)
-    assert torch.equal(final, pt_color)
+    cfg = RenderConfig(width=16, height=16, num_atrous_iterations=3, pallas_denoise=pallas)
+    assert _check_layout(16, mesh, cfg, halo=13) == 16
+    if pallas:
+        with pytest.raises(ValueError, match="K4's reach"):
+            _check_layout(16, mesh, cfg, halo=14)
+    else:
+        assert _check_layout(16, mesh, cfg, halo=14) == 16

@@ -5,7 +5,8 @@ neither), K2 (fused bounce classes, and each class
 against K3 on that class alone), K3 (per-ray origins over the wide
 records; also the five walks of a separate-walk and a MIS frame), K4 and K5 (the
 denoiser; also at ragged and tiny sizes and at 1080p, on sky, at every
-history tap, and with no pixel and every pixel taking K4's fallback), K6
+history tap, with no pixel and every pixel taking K4's fallback, and on a
+sharded frame's row window, with a motion beyond the halo too), K6
 (chunked forests of 8 and 128 chunks), K7 (the one-hot
 hi/lo gather at each compile-time width and the run-time one, with ragged
 N, a misaligned table and indices outside the table), frames of every path through them, and a train step's
@@ -33,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpuray_torch.denoise.atrous import atrous_iteration
 from tpuray_torch.integrator.path_tracer import (
     KERNELS, PLAIN, _compact_budget, pack_traversal)
 from tpuray_torch.kernels import atrous as ka
@@ -47,7 +49,7 @@ from tpuray_torch.scene.procedural import make_large_scene, make_test_scene
 from tpuray_torch.train import optimize
 from tpuray_torch.traversal_times import k3_walks
 
-from tests.test_torch_denoise_tiles import _k4_inputs, _k5_inputs
+from tests.test_torch_denoise_tiles import _k4_inputs, _k5_inputs, _slab
 
 pytestmark = pytest.mark.gpu
 
@@ -412,9 +414,9 @@ def test_k5_steps_match_plain(cuda_scene, n_iters):
     for quirks in (False, True):
         cfg = RenderConfig(num_atrous_iterations=n_iters, reference_quirks=quirks)
         ka.reset_launches()
-        (gi, gv), (ti, tv) = ka.atrous_chain(illum, var, n, z, fwz, cfg)
+        (gi, gv), (ti, tv) = ka.chain(ka.atrous_step, illum, var, n, z, fwz, cfg)
         assert ka.LAUNCHES["k5"] == n_iters
-        (ri, rv), (rti, rtv) = ka.atrous_chain_plain(illum, var, n, z, fwz, cfg)
+        (ri, rv), (rti, rtv) = ka.chain(atrous_iteration, illum, var, n, z, fwz, cfg)
         torch.cuda.synchronize()
         for got, ref, name in ((gi, ri, "illum"), (gv, rv, "variance"),
                                (ti, rti, "tap illum"), (tv, rtv, "tap variance")):
@@ -437,9 +439,9 @@ def test_k5_sizes_match_plain(cuda_scene, h, w, quirks):
     args = _cuda(*_k5_inputs(h * w, h, w))
     cfg = RenderConfig(reference_quirks=quirks)
     ka.reset_launches()
-    got = ka.atrous_chain(*args, cfg)
+    got = ka.chain(ka.atrous_step, *args, cfg)
     assert ka.LAUNCHES["k5"] == 5
-    ref = ka.atrous_chain_plain(*args, cfg)
+    ref = ka.chain(atrous_iteration, *args, cfg)
     torch.cuda.synchronize()
     _chain_close(got, ref, f"{h}x{w}")
 
@@ -454,8 +456,8 @@ def test_k5_sky_and_sigma_match_plain(cuda_scene, case):
         z[:] = 1.0
     cfg = RenderConfig(sigma_n={"sigma_n_3": 3.0, "sigma_n_64": 64.0}.get(case, 128.0))
     args = _cuda(il, var, n, z, fwz)
-    got = ka.atrous_chain(*args, cfg)
-    ref = ka.atrous_chain_plain(*args, cfg)
+    got = ka.chain(ka.atrous_step, *args, cfg)
+    ref = ka.chain(atrous_iteration, *args, cfg)
     torch.cuda.synchronize()
     _chain_close(got, ref, case)
     assert torch.equal(got[0][0][:8, :32], args[0][:8, :32])
@@ -468,8 +470,8 @@ def test_k5_history_tap_matches_plain(cuda_scene, tap):
     """The history tap at 0, 1, 4 and past the chain (the input itself)."""
     args = _cuda(*_k5_inputs(16, 96, 128))
     cfg = RenderConfig(history_atrous_tap=tap)
-    got = ka.atrous_chain(*args, cfg)
-    ref = ka.atrous_chain_plain(*args, cfg)
+    got = ka.chain(ka.atrous_step, *args, cfg)
+    ref = ka.chain(atrous_iteration, *args, cfg)
     torch.cuda.synchronize()
     _chain_close(got, ref, f"tap {tap}")
     assert (got[1][0] is args[0]) == (tap >= cfg.num_atrous_iterations)
@@ -495,6 +497,67 @@ def test_k4_cases_match_plain(cuda_scene, h, w, case, quirks):
         _assert_close(getattr(got, f), getattr(ref, f), f)
     needs = (ref.history_len < 4) & (a["linear_z"] != 1.0)
     assert bool(needs.any()) == (case != "none")
+
+
+@pytest.mark.parametrize("shard,halo", [(0, 32), (1, 32), (3, 32), (3, 4), (3, 2)])
+def test_k4_row_window_matches_plain(cuda_scene, shard, halo):
+    """K4 on one of 4 shards of 64 rows, extended by halo + 3 (as the
+    sharded frame runs it), against its plain version with the same
+    window: history_len exact, every output within rtol 1e-5; at halo 32
+    every tap lies inside and the cropped rows equal the whole image's K4;
+    at halos 4 and 2 the block moving 9.2 rows (rows 150-229) sends the
+    taps of the last shard's first rows above its rows, which fail their
+    reprojection on both sides."""
+    a = _denoise_inputs(21)
+    full = dict(zip(a, _cuda(*a.values())))
+    h, rows, k = 256, 64, halo + 3
+    row0 = shard * rows - k
+    s = {n: _slab(x, row0, rows + 2 * k) for n, x in full.items()}
+    cfg = RenderConfig(width=384, height=h)
+    kr.reset_launches()
+    got = kr.reproject_variance_fused(cfg, row_window=(row0, h), **s)
+    assert kr.LAUNCHES["k4"] == 1
+    ref = kr.reproject_variance_plain(cfg, row_window=(row0, h), **s)
+    whole = kr.reproject_variance_fused(cfg, **full)
+    torch.cuda.synchronize()
+    assert torch.equal(got.history_len, ref.history_len)
+    for f in got._fields:
+        _assert_close(getattr(got, f), getattr(ref, f), f)
+    crop = {f: getattr(got, f)[k:-k] for f in got._fields}
+    mine = {f: getattr(whole, f)[shard * rows:(shard + 1) * rows] for f in got._fields}
+    if halo == 32:
+        for f in got._fields:
+            assert torch.equal(crop[f], mine[f]), f
+    else:
+        lost = (crop["history_len"] == 1) & (mine["history_len"] != 1)
+        assert bool(lost.any())
+
+
+@pytest.mark.parametrize("shard", [0, 1, 3])
+def test_k5_row_window_matches_plain(cuda_scene, shard):
+    """Each iteration of the chain on one of 4 shards of 64 rows, extended
+    by 2 * step + 1 (as the sharded frame runs it), against its plain
+    version with the same window and, cropped, against the whole image's
+    iteration, within rtol 1e-5; one launch each."""
+    il, var, n, z, fwz = _cuda(*_k5_inputs(22, 256, 384))
+    cfg = RenderConfig()
+    rows = 64
+    for i in range(cfg.num_atrous_iterations):
+        step = 1 << i
+        k = 2 * step + 1
+        row0 = shard * rows - k
+        s = [_slab(x, row0, rows + 2 * k) for x in (il, var, n, z, fwz)]
+        ka.reset_launches()
+        got = ka.atrous_step(*s, step, cfg, row_window=(row0, 256))
+        assert ka.LAUNCHES["k5"] == 1
+        ref = atrous_iteration(*s, step, cfg, row_window=(row0, 256))
+        whole = ka.atrous_step(il, var, n, z, fwz, step, cfg)
+        torch.cuda.synchronize()
+        for a, b, w_, name in zip(got, ref, whole, ("illum", "variance")):
+            _assert_close(a, b, f"{name}, step {step}")
+            _assert_close(a[k:-k], w_[shard * rows:(shard + 1) * rows],
+                          f"{name}, step {step}, against the whole image")
+        il, var = whole
 
 
 @pytest.mark.parametrize("sigma_n", [3.0, 64.0])
@@ -735,21 +798,25 @@ def test_nccl_render_tiled_matches_trace_paths(cuda_scene, nccl_mesh):
     assert torch.equal(albedo, ref.albedo.reshape(n, n, 3))
 
 
-def test_nccl_sharded_frames_match_render_frame(cuda_scene, nccl_mesh):
-    """Three moving frames and a still one of render_frame_sharded on one
-    NCCL rank equal render_frame with the plain denoiser bit for bit (K1 1
-    and K2 2 a frame, no K4 or K5)."""
+@pytest.mark.parametrize("pallas", [True, False])
+def test_nccl_sharded_frames_match_render_frame(cuda_scene, nccl_mesh, pallas):
+    """Three moving frames and a still one (static_camera=True) of
+    render_frame_sharded on one NCCL rank equal render_frame under the same
+    config bit for bit: K1 1 and K2 2 a frame, and K4 1 and K5 an iteration
+    under RenderConfig()'s denoiser (pallas_denoise, where the still frame
+    takes K4 at zero motion), none under the plain stages."""
     from tpuray_torch.dist.frame import render_frame_sharded, shard_state
     from tpuray_torch.render.frame_state import FrameState
     from tpuray_torch.render.renderer import render_frame
     scene, _ = cuda_scene
     n = 128
     cfg = RenderConfig(width=n, height=n, compact_frac=0.0, compact_auto=False,
-                       pallas_denoise=False)
+                       pallas_denoise=pallas)
     tables = pack_traversal(scene)
     cam = OrbitCamera(width=n, height=n)
     s1 = FrameState.initial(n, n, "cuda")
     s2 = shard_state(FrameState.initial(n, n), nccl_mesh)
+    k45 = dict(k4=1, k5=cfg.num_atrous_iterations) if pallas else dict(k4=0, k5=0)
     for rot, still in ((0.5, False), (0.5, False), (0.5, False), (0.0, True)):
         cam.rotate(rot, 0.0)
         snap = cam.snapshot("cuda")
@@ -761,10 +828,47 @@ def test_nccl_sharded_frames_match_render_frame(cuda_scene, nccl_mesh):
             kr.reset_launches()
             s2, final, pt_color = render_frame_sharded(scene, snap, s2, cfg, n, n, nccl_mesh,
                                                        static_camera=still, tables=tables)
-        assert {**kt.LAUNCHES, **ka.LAUNCHES, **kr.LAUNCHES} == dict(k1=1, k2=2, k3=0,
-                                                                      k4=0, k5=0)
+        assert {**kt.LAUNCHES, **ka.LAUNCHES, **kr.LAUNCHES} == dict(k1=1, k2=2, k3=0, **k45)
         assert torch.equal(final, out.final) and torch.equal(pt_color, out.pt_color)
         assert torch.equal(s2.history_len, s1.history_len)
+
+
+def test_nccl_check_job_frames(cuda_scene, nccl_mesh, tmp_path):
+    """`python -m tpuray_torch.dist.dryrun N --check`'s "frames" part on one
+    NCCL rank, under both denoisers (dryrun.DENOISERS): the moving frames
+    and the still one (static_camera=True, K4 at zero motion under the
+    kernel denoiser) bit-equal to render_frame's on the same camera path,
+    the compacted frames finite; K4 1 and K5 an iteration a frame."""
+    from tpuray_torch.dist import dryrun
+    from tpuray_torch.render.frame_state import FrameState
+    from tpuray_torch.render.renderer import render_frame
+    out = tmp_path / "check.npz"
+    kr.reset_launches()
+    ka.reset_launches()
+    dryrun.check_job(nccl_mesh, str(out), parts=("frames",))
+    n_it = dryrun.CHECK_CFG["num_atrous_iterations"]
+    assert (kr.LAUNCHES["k4"], ka.LAUNCHES["k5"]) == (6, 6 * n_it)  # 3 runs of 2 frames
+    res = np.load(out)
+    n = dryrun.CHECK_SIZE
+    scene = dryrun.check_scene("cuda")
+    for den, pallas in dryrun.DENOISERS.items():
+        cfg = RenderConfig(width=n, height=n, pallas_denoise=pallas, **dryrun.CHECK_CFG)
+        for key, rotations, still_last in (("moving", dryrun.CHECK_ROTATIONS, False),
+                                           ("static", (0.0, 0.0), True)):
+            cam = OrbitCamera(width=n, height=n)
+            state = FrameState.initial(n, n, "cuda")
+            for i, rot in enumerate(rotations):
+                still = still_last and i == len(rotations) - 1
+                cam.rotate(0.0 if still else rot, 0.0)
+                with torch.no_grad():
+                    state, ref = render_frame(scene, cam.snapshot("cuda"), state, cfg, n, n,
+                                              static_camera=still)
+                name = f"{den}_{key}_final_{i}"
+                if name in res.files:
+                    np.testing.assert_array_equal(res[name], ref.final.cpu().numpy(),
+                                                  err_msg=name)
+        for i in range(len(dryrun.CHECK_ROTATIONS)):
+            assert np.isfinite(res[f"{den}_compact_final_{i}"]).all()
 
 
 def test_nccl_sharded_train_step_matches_single(cuda_scene, nccl_mesh):

@@ -375,7 +375,7 @@ def test_denoise_kernels_raise_under_grad(scenes):
     x = torch.rand((8, 8, 3), requires_grad=True)
     z = torch.rand((8, 8))
     with pytest.raises(RuntimeError, match="K5.*pallas_denoise=False"):
-        ka.atrous_chain(x, z, x.detach(), z, z, cfg)
+        ka.atrous_step(x, z, x.detach(), z, z, 1, cfg)
     k4_in = {name: torch.rand((8, 8, c) if c > 1 else (8, 8))
              for name, c in kr._INPUTS}
     k4_in["color"].requires_grad_(True)

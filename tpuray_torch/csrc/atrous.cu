@@ -55,6 +55,17 @@
 //    layout, so the wrapper packs and unpacks nothing; the output of the
 //    history-tap iteration is a buffer of its own (next frame's history).
 //
+// Row window. A rank of a row-sharded frame (tpuray_torch/dist/frame.py)
+// passes its rows extended by 2 * step + 1 a side: local row y is image row
+// row0 + y of an image global_h rows tall. Only the taps' inside bits take
+// image rows (the entry point turns the window into local bounds, [-row0,
+// global_h - row0)); the staging and the pre-blur clamp to the rows in
+// memory, as the plain version's shift2d, and the classes of y mod step
+// stay local (the taps sit at fixed offsets from the pixel). The window
+// is a template argument: without it (row0 0, global_h h) the kernel is the
+// whole-image one (bounds [0, h), 56 registers; the bounds from parameters
+// took 58, ptxas).
+//
 // Exactness. Built with -fmad=false, IEEE sqrt and no fast math, the op
 // order is the plain version's but for two changes: w_z = |dz| * (1 /
 // phi_d) and w_l = |dl| * (1 / phi_l), a multiplication by a reciprocal
@@ -85,6 +96,7 @@ inline int classes_x(int step) {
 
 struct Params {
   int h, w, step;
+  int y_lo, y_hi;  // the image's rows as local rows: [-row0, global_h - row0)
   float sigma_n;
   int n_sq;  // sigma_n == 2^n_sq: repeated squaring; -1: powf
   float sigma_l;
@@ -105,7 +117,7 @@ __device__ __forceinline__ int dist_index(int ax, int ay) {
   return d2 == 1 ? 0 : (d2 == 2 ? 1 : (d2 == 4 ? 2 : (d2 == 5 ? 3 : 4)));
 }
 
-template <int kSq, int CX>
+template <int kSq, int CX, bool kWin>
 __global__ void __launch_bounds__(TW * TH) atrous_step(
     const float* __restrict__ illum, const float* __restrict__ variance,
     const float* __restrict__ normal, const float* __restrict__ linear_z,
@@ -190,7 +202,9 @@ __global__ void __launch_bounds__(TW * TH) atrous_step(
 #pragma unroll
   for (int k = -2; k <= 2; ++k) {
     in_x |= static_cast<unsigned>(x + k * s >= 0 && x + k * s < w) << (k + 2);
-    in_y |= static_cast<unsigned>(y + k * s >= 0 && y + k * s < h) << (k + 2);
+    const int yk = y + k * s;
+    in_y |= static_cast<unsigned>(kWin ? yk >= p.y_lo && yk < p.y_hi : yk >= 0 && yk < h)
+            << (k + 2);
   }
 
   float sum_w = 1.f, sr = c.x, sg = c.y, sb = c.z, sv = c.w;  // centre: weight 1
@@ -224,25 +238,36 @@ __global__ void __launch_bounds__(TW * TH) atrous_step(
   out_variance[i] = sv / (sum_w * sum_w);
 }
 
+using StepKernel = void (*)(const float*, const float*, const float*, const float*,
+                           const float*, float*, float*, Params);
+
+// the instance for cx classes of x a block
+template <int kSq, bool kWin>
+StepKernel step_kernel(int cx) {
+  return cx == 1 ? atrous_step<kSq, 1, kWin>
+       : cx == 2 ? atrous_step<kSq, 2, kWin>
+       : cx == 4 ? atrous_step<kSq, 4, kWin>
+                 : atrous_step<kSq, 8, kWin>;
+}
+
 }  // namespace
 
 extern "C" int tpuray_atrous_step(const float* illum, const float* variance,
                                   const float* normal, const float* linear_z,
                                   const float* fwidth_z, float* out_illum,
-                                  float* out_variance, int h, int w, int step, float sigma_n,
-                                  int n_sq, float sigma_l, int quirks, cudaStream_t stream) {
+                                  float* out_variance, int h, int w, int row0, int global_h,
+                                  int step, float sigma_n, int n_sq, float sigma_l, int quirks,
+                                  cudaStream_t stream) {
   const int cx = classes_x(step);
   const int nbx = ((w + step - 1) / step + TW / cx - 1) / (TW / cx);
   const int nby = ((h + step - 1) / step + TH - 1) / TH;
-  const Params p{h, w, step, sigma_n, n_sq, sigma_l, quirks};
+  const Params p{h, w, step, -row0, global_h - row0, sigma_n, n_sq, sigma_l, quirks};
   const dim3 block(TW, TH);
   const dim3 grid(nbx * (step / cx), nby * step);
-  const bool sq = n_sq == denoise::kDefaultSquarings;
   constexpr int kS = denoise::kDefaultSquarings;
-  auto kernel = cx == 1 ? (sq ? atrous_step<kS, 1> : atrous_step<-1, 1>)
-              : cx == 2 ? (sq ? atrous_step<kS, 2> : atrous_step<-1, 2>)
-              : cx == 4 ? (sq ? atrous_step<kS, 4> : atrous_step<-1, 4>)
-                        : (sq ? atrous_step<kS, 8> : atrous_step<-1, 8>);
+  const bool sq = n_sq == kS, win = row0 != 0 || global_h != h;
+  const StepKernel kernel = sq ? (win ? step_kernel<kS, true>(cx) : step_kernel<kS, false>(cx))
+                               : (win ? step_kernel<-1, true>(cx) : step_kernel<-1, false>(cx));
   kernel<<<grid, block, 0, stream>>>(illum, variance, normal, linear_z, fwidth_z, out_illum,
                                      out_variance, p);
   return static_cast<int>(cudaGetLastError());

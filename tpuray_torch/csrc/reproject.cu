@@ -49,6 +49,16 @@
 //  * The 7x7 fallback reads the tile only: constant offsets from the
 //    thread's own point, the inside-the-image mask as a select.
 //
+// Row window. A rank of a row-sharded frame (tpuray_torch/dist/frame.py)
+// passes its rows extended by its neighbours': local row y is image row
+// row0 + y of an image global_h rows tall. The pixel and uv arithmetic,
+// the tap bounds and the fallback's inside bits take image rows; every
+// memory read takes the local row, clamped to the extended rows (the
+// tile's halo too, as the plain version's shift2d); a pixel whose bilinear
+// or rescue taps leave the extended rows fails its reprojection, as the
+// plain version's in_shard does. The window is a template argument: without
+// it (row0 0, global_h h) the kernel is the whole-image one.
+//
 // Exactness. Built with -fmad=false, IEEE division and sqrt and no fast
 // math, every operation repeats the plain version's op order, so the
 // outputs equal the plain PyTorch version's up to expf/powf's last bits;
@@ -78,13 +88,14 @@ constexpr int TILE = SW * SH;            // 532 points
 constexpr int RING = TILE - BW * BH;     // 276 halo points
 
 struct Params {
-  int h, w;
+  int h, w;        // the rows and columns in memory
+  int row0, gh;    // local row 0 is image row row0 of gh (the row window)
   float depth_thr, normal_thr, history_cap, alpha_min;
   float sigma_n;
   int n_sq;  // sigma_n == 2^n_sq: repeated squaring; -1: powf
   float sigma_l;
   int quirks;
-  float texel_w, texel_h;  // float(1.0 / w), float(1.0 / h)
+  float texel_w, texel_h;  // float(1.0 / w), float(1.0 / gh)
 };
 
 struct Inputs {
@@ -138,11 +149,11 @@ __device__ __forceinline__ HistRow fetch(const Inputs& in, int y, int x, int w) 
   return r;
 }
 
-// isReprjValid (svgf_reproject.frag:31-43)
-__device__ __forceinline__ bool tap_valid(int yi, int xi, const Params& p, float z,
+// isReprjValid (svgf_reproject.frag:31-43); yi an image row of h
+__device__ __forceinline__ bool tap_valid(int yi, int xi, int h, const Params& p, float z,
                                           float fw_z, const float* n, float fw_n,
                                           const HistRow& t) {
-  const bool in_b = xi >= 0 && xi < p.w && yi >= 0 && yi < p.h;
+  const bool in_b = xi >= 0 && xi < p.w && yi >= 0 && yi < h;
   const bool depth_ok = (fabsf(t.z - z) / (fw_z + 1e-2f)) <= p.depth_thr;
   const float d0 = n[0] - t.n[0], d1 = n[1] - t.n[1], d2 = n[2] - t.n[2];
   const float nd = sqrtf(d0 * d0 + d1 * d1 + d2 * d2);
@@ -167,11 +178,15 @@ struct Rep {
   float z;
 };
 
-// the exact reprojection of pixel (x, y), which lies inside the image; a
-// sky pixel's outputs are its passthrough, so it reads no history
+// the exact reprojection of pixel (x, y) of memory (local row y); a sky
+// pixel's outputs are its passthrough, so it reads no history
+template <bool kWin>
 __device__ __forceinline__ Rep reproject_px(const Inputs& in, const Params& p, int x, int y) {
   const int i = y * p.w + x;
-  const int w = p.w, h = p.h;
+  // w, h: the image's columns and rows; y + row0: the pixel's image row
+  const int w = p.w, h = kWin ? p.gh : p.h, row0 = kWin ? p.row0 : 0;
+  // the memory row of image row t, clamped to the rows in memory
+  auto local = [&](int t) { return kWin ? clampi(t - row0, 0, p.h - 1) : t; };
   Rep r;
   r.z = in.linear_z[i];
   const float z = r.z;
@@ -201,7 +216,7 @@ __device__ __forceinline__ Rep reproject_px(const Inputs& in, const Params& p, i
   // back-projected pixel position
   const float wf = static_cast<float>(w), hf = static_cast<float>(h);
   const float uv_x = (static_cast<float>(x) + 0.5f) / wf - in.motion[2 * i];
-  const float uv_y = (static_cast<float>(y) + 0.5f) / hf - in.motion[2 * i + 1];
+  const float uv_y = (static_cast<float>(y + row0) + 0.5f) / hf - in.motion[2 * i + 1];
   const float fx = uv_x * wf - 0.5f;
   const float fy = uv_y * hf - 0.5f;
   const float x0f = floorf(fx), y0f = floorf(fy);
@@ -230,9 +245,9 @@ __device__ __forceinline__ Rep reproject_px(const Inputs& in, const Params& p, i
   bool any_valid = false;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    const HistRow t = fetch(in, min(yc + qdy(k), h - 1), min(xc + qdx(k), w - 1), w);
+    const HistRow t = fetch(in, local(min(yc + qdy(k), h - 1)), min(xc + qdx(k), w - 1), w);
     hls[k] = t.hl;
-    const bool v = tap_valid(y0 + qdy(k), x0 + qdx(k), p, z, fw_z, n, fw_n, t);
+    const bool v = tap_valid(y0 + qdy(k), x0 + qdx(k), h, p, z, fw_z, n, fw_n, t);
     any_valid = any_valid || v;
     const float wv = v ? wts[k] : 0.f;
     sum_w = sum_w + wv;
@@ -241,7 +256,15 @@ __device__ __forceinline__ Rep reproject_px(const Inputs& in, const Params& p, i
     acc_m[0] = acc_m[0] + wv * t.m[0];
     acc_m[1] = acc_m[1] + wv * t.m[1];
   }
-  const bool bilinear_ok = any_valid && (sum_w >= 0.01f);
+  // a window's pixel whose bilinear or rescue taps leave the rows in memory
+  // fails (the plain version's in_shard)
+  bool in_shard = true;
+  if (kWin) {
+    const int lo = min(yc, clampi(y0 - 1, 0, h - 2));
+    const int hi = max(min(yc + 1, h - 1), clampi(y0 + 1, 0, h - 2) + 1);
+    in_shard = lo >= row0 && hi < row0 + p.h;
+  }
+  const bool bilinear_ok = any_valid && (sum_w >= 0.01f) && in_shard;
   const float safe_w = maxp(sum_w, 1e-6f);
   float prev_i[4], prev_m[2];
 #pragma unroll
@@ -252,7 +275,7 @@ __device__ __forceinline__ Rep reproject_px(const Inputs& in, const Params& p, i
   // 3x3 rescue (svgf_reproject.frag:111-141): 4 quads, bases clamped to
   // [0, dim - 2]; only read where the bilinear taps failed
   bool rescue_ok = false;
-  if (!bilinear_ok) {
+  if (!bilinear_ok && in_shard) {
     float n_valid = 0.f, rs[4] = {0.f, 0.f, 0.f, 0.f}, rs_m[2] = {0.f, 0.f};
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
@@ -264,8 +287,8 @@ __device__ __forceinline__ Rep reproject_px(const Inputs& in, const Params& p, i
         bool in_window = abs(ty - y0) <= 1 && abs(tx - x0) <= 1;
         // only the first quad owns taps with ty <= y0 and tx <= x0
         if (b != 0) in_window = in_window && !(ty <= y0 && tx <= x0);
-        const HistRow t = fetch(in, ty, tx, w);
-        const bool v = in_window && tap_valid(ty, tx, p, z, fw_z, n, fw_n, t);
+        const HistRow t = fetch(in, local(ty), tx, w);
+        const bool v = in_window && tap_valid(ty, tx, h, p, z, fw_z, n, fw_n, t);
         const float vf = v ? 1.f : 0.f;
         n_valid = n_valid + vf;
 #pragma unroll
@@ -324,7 +347,7 @@ __device__ __forceinline__ float dist7(int d2) {
        : d2 == 10 ? 0x1.94c584p+1f : d2 == 13 ? 0x1.cd82b4p+1f : 0x1.0f876cp+2f;
 }
 
-template <int kSq>
+template <int kSq, bool kWin>
 __global__ void __launch_bounds__(BW * BH, 3) reproject_variance(Inputs in, Outputs out,
                                                                  Params p) {
   __shared__ float4 s_il[TILE];  // rep_illum rgb, its luminance
@@ -341,7 +364,7 @@ __global__ void __launch_bounds__(BW * BH, 3) reproject_variance(Inputs in, Outp
   bool needs;
   {
     // a thread past the ragged edge reprojects the clamped pixel: its tile point
-    const Rep r = reproject_px(in, p, min(x, w - 1), min(y, h - 1));
+    const Rep r = reproject_px<kWin>(in, p, min(x, w - 1), min(y, h - 1));
     if (in_img) {
 #pragma unroll
       for (int c = 0; c < 3; ++c) out.rep_illum[3 * i + c] = r.o[c];
@@ -369,8 +392,8 @@ __global__ void __launch_bounds__(BW * BH, 3) reproject_variance(Inputs in, Outp
   for (int k = threadIdx.y * BW + threadIdx.x; k < RING; k += BW * BH) {
     int ex, ey;
     ring_point(k, ex, ey);
-    const Rep q = reproject_px(in, p, clampi(bx0 + ex - HR, 0, w - 1),
-                               clampi(by0 + ey - HR, 0, h - 1));
+    const Rep q = reproject_px<kWin>(in, p, clampi(bx0 + ex - HR, 0, w - 1),
+                                     clampi(by0 + ey - HR, 0, h - 1));
     const int e = ey * SW + ex;
     s_il[e] = make_float4(q.o[0], q.o[1], q.o[2], lum(q.o[0], q.o[1], q.o[2]));
     s_nz[e] = make_float4(q.n[0], q.n[1], q.n[2], q.z);
@@ -391,12 +414,13 @@ __global__ void __launch_bounds__(BW * BH, 3) reproject_variance(Inputs in, Outp
   const float l_c = own.w;
   const float phi_depth = maxp(in.fwidth_z[i], 1e-8f) * 3.0f;
   const float phi_l = maxp(p.sigma_l, 1e-10f);
-  // bit k + 3 of in_x / in_y: offset k inside the image
+  // bit k + 3 of in_x / in_y: offset k inside the image (image rows)
+  const int gy = kWin ? y + p.row0 : y, gh = kWin ? p.gh : h;
   unsigned in_x = 0, in_y = 0;
 #pragma unroll
   for (int k = -HR; k <= HR; ++k) {
     in_x |= static_cast<unsigned>(x + k >= 0 && x + k < w) << (k + HR);
-    in_y |= static_cast<unsigned>(y + k >= 0 && y + k < h) << (k + HR);
+    in_y |= static_cast<unsigned>(gy + k >= 0 && gy + k < gh) << (k + HR);
   }
 
   float sum_w = 0.f, s_i[3] = {0.f, 0.f, 0.f}, s_mo[2] = {0.f, 0.f};
@@ -440,20 +464,22 @@ extern "C" int tpuray_reproject_variance(
     const float* fwidth_z, const float* prev_illum, const float* prev_variance,
     const float* prev_normal, const float* prev_linear_z, const float* prev_moments,
     const float* prev_history_len, float* rep_illum, float* rep_variance, float* moments,
-    float* history_len, float* var_illum, float* var_variance, int h, int w,
-    float depth_thr, float normal_thr, float history_cap, float alpha_min, float sigma_n,
-    int n_sq, float sigma_l, int quirks, cudaStream_t stream) {
+    float* history_len, float* var_illum, float* var_variance, int h, int w, int row0,
+    int global_h, float depth_thr, float normal_thr, float history_cap, float alpha_min,
+    float sigma_n, int n_sq, float sigma_l, int quirks, cudaStream_t stream) {
   const Inputs in{color, emission, albedo, motion, normal, linear_z, fwidth_normal,
                   fwidth_z, prev_illum, prev_variance, prev_normal, prev_linear_z,
                   prev_moments, prev_history_len};
   const Outputs out{rep_illum, rep_variance, moments, history_len, var_illum, var_variance};
-  const Params p{h, w, depth_thr, normal_thr, history_cap, alpha_min, sigma_n, n_sq,
-                 sigma_l, quirks, static_cast<float>(1.0 / w), static_cast<float>(1.0 / h)};
+  const Params p{h, w, row0, global_h, depth_thr, normal_thr, history_cap, alpha_min,
+                 sigma_n, n_sq, sigma_l, quirks, static_cast<float>(1.0 / w),
+                 static_cast<float>(1.0 / global_h)};
   const dim3 block(BW, BH);
   const dim3 grid((w + BW - 1) / BW, (h + BH - 1) / BH);
-  auto kernel = n_sq == denoise::kDefaultSquarings
-                    ? reproject_variance<denoise::kDefaultSquarings>
-                    : reproject_variance<-1>;
+  constexpr int kS = denoise::kDefaultSquarings;
+  const bool sq = n_sq == kS, win = row0 != 0 || global_h != h;
+  auto kernel = sq ? (win ? reproject_variance<kS, true> : reproject_variance<kS, false>)
+                   : (win ? reproject_variance<-1, true> : reproject_variance<-1, false>);
   kernel<<<grid, block, 0, stream>>>(in, out, p);
   return static_cast<int>(cudaGetLastError());
 }

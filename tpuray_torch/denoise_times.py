@@ -6,8 +6,9 @@ to compare two versions of the kernels in one call.
 --tree DIR imports tpuray_torch from DIR, a checkout of another commit
 (for example the parent, unpacked with `git archive` into the git-ignored
 build/), so the same inputs go through that version's kernels; the script
-calls only Renderer, reproject_variance_fused and atrous_chain, which every
-version since slice 2 has. The inputs: the denoiser's inputs of the 5th
+calls only Renderer, reproject_variance_fused and K5's chain (kernels/
+atrous.py:chain over atrous_step, or atrous_chain in a tree that predates
+the row window). The inputs: the denoiser's inputs of the 5th
 moving frame of the test scene (20,482 triangles) under the default view,
 at 800x800 and at 1920x1080, recorded as chip_smoke.py's phase 3 records
 them. Times: K4 (one call), and K5's chain on K4's output at 1 to 5
@@ -40,8 +41,8 @@ class RecordK4:
         from tpuray_torch.kernels import reproject as kr
         self.kr, self.real = kr, kr.reproject_variance_fused
 
-        def recording(cfg, **inputs):
-            self.inputs = {k: v.clone() for k, v in inputs.items()}
+        def recording(cfg, **inputs):  # the inputs, and row_window where given
+            self.inputs = {k: v.clone() for k, v in inputs.items() if k != "row_window"}
             return self.real(cfg, **inputs)
 
         kr.reproject_variance_fused = recording
@@ -97,7 +98,12 @@ def chain_times(chain_in: tuple, cfg) -> list[float]:
     at 1 to cfg.num_atrous_iterations iterations: device ms of each."""
     from tpuray_torch.kernels import atrous as ka
     kernel_ms = _kernel_ms()
-    return [kernel_ms(lambda n=n: ka.atrous_chain(
+    if hasattr(ka, "chain"):
+        def k5(*args):
+            return ka.chain(ka.atrous_step, *args)
+    else:  # a tree that predates the row window
+        k5 = ka.atrous_chain
+    return [kernel_ms(lambda n=n: k5(
         *chain_in, dataclasses.replace(cfg, num_atrous_iterations=n)))
         for n in range(1, cfg.num_atrous_iterations + 1)]
 

@@ -37,7 +37,7 @@ ROOT = Path(__file__).resolve().parents[2]
 CHECK_SIZE = 64
 CHECK_SCENE = dict(subdiv=1, env_width=32)
 CHECK_CFG = dict(max_tracing_depth=1, num_atrous_iterations=2, compact_frac=0.0,
-                 compact_auto=False, pallas_denoise=False)
+                 compact_auto=False)
 CHECK_HALO = 8
 CHECK_ROTATIONS = (0.0, 1.5)  # degrees of yaw before each moving frame
 CHECK_COMPACT = 0.5           # the compacted frames' budget
@@ -95,12 +95,15 @@ def frames_sharded(scene, cfg, mesh, rotations, halo, static_last=False):
 
 
 CHECK_PARTS = ("tiled", "frames", "train")
+# the denoisers of the "frames" part: the key prefix -> cfg.pallas_denoise
+DENOISERS = {"kernels": True, "plain": False}
 
 
 def check_job(mesh, out: str | None, parts=CHECK_PARTS) -> None:
     """The comparisons the tests make, at CHECK_SIZE: render_tiled
-    ("tiled"), moving, still and compacted sharded frames ("frames"), and
-    one sharded SGD step ("train": loss, gradients, parameters, and whether
+    ("tiled"), moving, still and compacted sharded frames under each of
+    DENOISERS, its keys prefixed with the denoiser's ("frames"), and one
+    sharded SGD step ("train": loss, gradients, parameters, and whether
     every rank holds the same parameters). Rank 0 writes them to `out`."""
     from tpuray_torch.dist.sharding import gather_rows, render_tiled
     from tpuray_torch.scene.camera import OrbitCamera
@@ -119,21 +122,22 @@ def check_job(mesh, out: str | None, parts=CHECK_PARTS) -> None:
         for name, x in zip(("color", "emission", "albedo"), tiled):
             res[f"tiled_{name}"] = gather_rows(mesh, x, n)
 
-    if "frames" in parts:
+    for den, pallas in DENOISERS.items() if "frames" in parts else ():
+        dcfg = dataclasses.replace(cfg, pallas_denoise=pallas)
         with torch.no_grad():
-            finals, pts, state = frames_sharded(scene, cfg, mesh, CHECK_ROTATIONS, CHECK_HALO)
+            finals, pts, state = frames_sharded(scene, dcfg, mesh, CHECK_ROTATIONS, CHECK_HALO)
             for i, (f, p) in enumerate(zip(finals, pts)):
-                res[f"moving_final_{i}"], res[f"moving_pt_{i}"] = f, p
+                res[f"{den}_moving_final_{i}"], res[f"{den}_moving_pt_{i}"] = f, p
             for field in ("history_len", "illum_hist", "moments", "taa_color"):
-                res[f"moving_state_{field}"] = getattr(state, field)
-            finals, _, _ = frames_sharded(scene, cfg, mesh, (0.0, 0.0), CHECK_HALO,
+                res[f"{den}_moving_state_{field}"] = getattr(state, field)
+            finals, _, _ = frames_sharded(scene, dcfg, mesh, (0.0, 0.0), CHECK_HALO,
                                           static_last=True)
-            res["static_final_1"] = finals[1]
+            res[f"{den}_static_final_1"] = finals[1]
             finals, _, _ = frames_sharded(
-                scene, dataclasses.replace(cfg, compact_frac=CHECK_COMPACT), mesh,
+                scene, dataclasses.replace(dcfg, compact_frac=CHECK_COMPACT), mesh,
                 CHECK_ROTATIONS, CHECK_HALO)
             for i, f in enumerate(finals):
-                res[f"compact_final_{i}"] = f
+                res[f"{den}_compact_final_{i}"] = f
 
     if "train" in parts:
         _check_train(mesh, scene, cfg, cam, res)
@@ -177,8 +181,7 @@ def dryrun_step(mesh) -> tuple[float, float]:
     dev = mesh.device
     h, w = 16 * mesh.size, 16  # 16 rows a rank: the largest a-trous halo (9) fits
     scene = check_scene(dev)
-    cfg = RenderConfig(width=w, height=h, max_tracing_depth=2, num_atrous_iterations=3,
-                       pallas_denoise=False)
+    cfg = RenderConfig(width=w, height=h, max_tracing_depth=2, num_atrous_iterations=3)
     cam = OrbitCamera(width=w, height=h).snapshot(dev)
     params, rebuild = optimize.split_trainable(scene, device=dev)
     before = _flat_params(params).clone()

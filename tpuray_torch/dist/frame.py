@@ -8,25 +8,30 @@ with the scene replicated. The denoise stages are stencils: before each
 stage the rank extends its shard with the rows it needs from its
 neighbours (point-to-point sends, `_halo_rows`), computes on the extended
 shard with global-coordinate bounds masks (the `row_window` argument of
-denoise/*) and crops, so the result is the single-device frame. The
-stages and their order are render_frame's own (denoise/svgf.py:plain_svgf
-with this module's ShardRows); a world of one holds the whole image and
-exchanges nothing.
+denoise/* and of K4 and K5) and crops, so the result is the single-device
+frame. The stages and their order are render_frame's own
+(denoise/svgf.py:svgf_pipeline with this module's ShardRows); a world of
+one holds the whole image and exchanges nothing.
 
 Temporal reprojection can read arbitrarily far rows under fast motion; the
 halo bounds it: a pixel whose history taps lie farther than `halo` rows
 from the shard fails its reprojection (the algorithm's response to a
-disocclusion), and TAA rejects such a pixel's history. `halo` also caps the
-a-trous exchange, so it must be >= 2 * the largest dilation step.
+disocclusion), and TAA rejects such a pixel's history. K4 reaches halo + 3
+rows, since it reprojects the variance fallback's 3 rows past the shard
+itself where the plain stages take them from the neighbour: the two
+denoisers differ only where the taps travel farther than the halo
+(ROADMAP.md §3). `halo` also caps the a-trous exchange, so it must be
+>= 2 * the largest dilation step.
 
 tpuray's sharded frame reads the moving camera's history through the
 tile-windowed fetch (denoise/tile_gather.py), which drops taps at motion
 discontinuities and at the border. The port keeps its exact read, so its
 sharded frame equals its single-device frame (render/renderer.py:
-render_frame with the plain denoiser, pallas_denoise=False) bit for bit at
-any world size wherever the motion stays inside the halo. The denoiser
-runs the plain stages, as tpuray's does: K4 and K5 take no row window, so
-a config that asks for them (pallas_denoise=True) raises.
+render_frame under the same config) bit for bit at any world size
+wherever the motion stays inside the halo. Under cfg.pallas_denoise (the
+default) each rank runs K4 once on its rows extended by halo + 3 and K5
+once per a-trous iteration, a halo exchanged before each; otherwise the
+plain stages, as tpuray's sharded frame runs XLA's stencils.
 
 Primary rays are row-major per shard with global pixel coordinates, so the
 RNG streams are the single-device frame's. Under compaction each rank ranks
@@ -104,7 +109,7 @@ def _halo_rows(mesh: Mesh, k: int, *xs: Tensor) -> tuple[Tensor, ...]:
 
 
 class ShardRows(ImageRows):
-    """This rank's rows of the frame for denoise/svgf.py:plain_svgf: a
+    """This rank's rows of the frame for denoise/svgf.py:svgf_pipeline: a
     stage's inputs extended by the neighbours' rows (_halo_rows), the
     global row window, the halo cropped again."""
 
@@ -138,6 +143,9 @@ def _check_layout(height: int, mesh: Mesh, cfg: RenderConfig, halo: int) -> int:
         raise ValueError(f"halo {halo} < 2 * the largest a-trous step {2 * max_step}")
     if halo > rows:
         raise ValueError(f"halo {halo} > shard rows {rows}")
+    if cfg.enable_svgf and cfg.pallas_denoise and halo + 3 > rows:
+        raise ValueError(f"K4's reach, halo {halo} + 3 for the variance fallback, exceeds "
+                         f"shard rows {rows}")
     if 2 * max_step + 1 > rows:
         raise ValueError(f"a-trous halo {2 * max_step + 1} exceeds shard rows {rows}; "
                          "use fewer ranks, a taller image or fewer iterations")
@@ -158,14 +166,11 @@ def render_frame_sharded(scene, camera: Camera, state: FrameState,
     final and pt_color are (H / world size, W, ...) row shards, frame_idx
     and prev_view_proj replicated. Every rank calls it with the same
     arguments. scene, tables and pk live on mesh.device (pack them once:
-    pack_traversal, pack_scene_tables). With SVGF on, cfg.pallas_denoise
-    must be False: the stages run plain."""
+    pack_traversal, pack_scene_tables). The denoiser runs K4 and K5 on
+    this rank's rows under cfg.pallas_denoise, the plain stages otherwise;
+    static_camera as render_frame's (on the card K4 at zero motion)."""
     check_config(cfg)
     rows = _check_layout(height, mesh, cfg, halo)
-    if cfg.enable_svgf and cfg.pallas_denoise:
-        raise ValueError("render_frame_sharded runs the plain denoise stages: K4 and K5 "
-                         "take no row window yet (ROADMAP.md item 18); pass "
-                         "pallas_denoise=False")
     row0 = mesh.rank * rows
     dev = mesh.device
     scene, camera = scene.to(dev), camera.to(dev)

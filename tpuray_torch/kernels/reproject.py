@@ -8,6 +8,11 @@ package's exact path computes, reproject(reproject_gather="exact")
 followed by estimate_variance, which is this module's plain version; the
 TPU kernel's tile-windowed history read is not carried over.
 
+row_window=(row0, global_h): the inputs are a row shard of a taller image
+extended by its neighbours' rows (dist/frame.py); both the kernel and its
+plain version take the window as the plain stages do (reproject's in_shard,
+the global bounds masks), on the same extended rows.
+
 The wrapper
 - raises if an input requires grad (forward only, as the JAX package's
   kernel; pallas_denoise=False runs the plain stages, which differentiate);
@@ -57,45 +62,53 @@ _INPUTS = (("color", 3), ("emission", 3), ("albedo", 3), ("motion", 2),
            ("fwidth_z", 1), ("prev_illum", 3), ("prev_variance", 1),
            ("prev_normal", 3), ("prev_linear_z", 1), ("prev_moments", 2),
            ("prev_history_len", 1))
+# their names: reproject's positional order
+INPUT_NAMES = tuple(n for n, _ in _INPUTS)
 
 
 def reproject_variance_plain(cfg: RenderConfig, static_camera: bool = False,
+                             row_window: tuple[int, int] | None = None,
                              **inputs: Tensor) -> FusedOutput:
     """K4's function in plain PyTorch: the exact reproject, then
-    estimate_variance. static_camera takes the static specialisation
-    (motion ignored), which has no kernel."""
-    rep = reproject(**inputs, cfg=cfg, static_camera=static_camera)
+    estimate_variance, both with row_window on the same rows.
+    static_camera takes the static specialisation (motion ignored), which
+    has no kernel."""
+    rep = reproject(**inputs, cfg=cfg, static_camera=static_camera, row_window=row_window)
     var = estimate_variance(
         illum=rep.illum, variance=rep.variance, moments=rep.moments,
         history_len=rep.history_len, normal=inputs["normal"],
-        linear_z=inputs["linear_z"], fwidth_z=inputs["fwidth_z"], cfg=cfg)
+        linear_z=inputs["linear_z"], fwidth_z=inputs["fwidth_z"], cfg=cfg,
+        row_window=row_window)
     return FusedOutput(rep_illum=rep.illum, rep_variance=rep.variance,
                        var_illum=var.illum, var_variance=var.variance,
                        moments=rep.moments, history_len=rep.history_len)
 
 
-def reproject_variance_fused(cfg: RenderConfig, **inputs: Tensor
-                             ) -> FusedOutput:
+def reproject_variance_fused(cfg: RenderConfig,
+                             row_window: tuple[int, int] | None = None,
+                             **inputs: Tensor) -> FusedOutput:
     """Moving-camera reproject + spatial-variance fallback.
 
     Keyword inputs as reproject's (color, emission, albedo, motion, normal,
     linear_z, fwidth_normal, fwidth_z, prev_illum, prev_variance,
     prev_normal, prev_linear_z, prev_moments, prev_history_len), each
-    (H, W) or (H, W, C) float32. Returns the six FusedOutput fields."""
+    (H, W) or (H, W, C) float32; row_window as the module says. Returns
+    the six FusedOutput fields."""
     gather_mode(cfg)
-    if set(inputs) != {n for n, _ in _INPUTS}:
-        raise TypeError(f"reproject_variance_fused takes {[n for n, _ in _INPUTS]}")
+    if set(inputs) != set(INPUT_NAMES):
+        raise TypeError(f"reproject_variance_fused takes {list(INPUT_NAMES)}")
     build.refuse_grad("reproject_variance_fused (K4)", NO_GRAD_HINT,
                       *inputs.values())
     color = inputs["color"]
     if color.device.type == "cpu":
-        return reproject_variance_plain(cfg, **inputs)
+        return reproject_variance_plain(cfg, row_window=row_window, **inputs)
     if color.device.type != "cuda":
         raise ValueError(f"reproject_variance_fused: unsupported device {color.device}")
     dev = color.device
     h, w = color.shape[:2]
-    if h < 2 or w < 2:
-        raise ValueError(f"K4 needs an image of at least 2x2, got {h}x{w}")
+    row0, global_h = row_window if row_window is not None else (0, h)
+    if h < 2 or w < 2 or global_h < 2:
+        raise ValueError(f"K4 needs an image of at least 2x2, got {h}x{w} of {global_h} rows")
     for name, c in _INPUTS:
         build.check(inputs[name], name, torch.float32,
                     (h, w) if c == 1 else (h, w, c), dev)
@@ -114,7 +127,7 @@ def reproject_variance_fused(cfg: RenderConfig, **inputs: Tensor
             out.rep_illum.data_ptr(), out.rep_variance.data_ptr(),
             out.moments.data_ptr(), out.history_len.data_ptr(),
             out.var_illum.data_ptr(), out.var_variance.data_ptr(),
-            h, w, f(cfg.reproj_depth_threshold), f(cfg.reproj_normal_threshold),
+            h, w, row0, global_h, f(cfg.reproj_depth_threshold), f(cfg.reproj_normal_threshold),
             f(cfg.history_cap), f(cfg.alpha_min), f(cfg.sigma_n),
             -1 if n_sq is None else n_sq, f(cfg.sigma_l),
             int(cfg.reference_quirks),

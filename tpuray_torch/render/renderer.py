@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from tpuray_torch.denoise.reproject import gather_mode
-from tpuray_torch.denoise.svgf import ImageRows, SVGFOutput, plain_svgf, svgf_pipeline
+from tpuray_torch.denoise.svgf import WHOLE_IMAGE, ImageRows, SVGFOutput, svgf_pipeline
 from tpuray_torch.integrator.gather_tables import PackedScene, pack_scene_tables
 from tpuray_torch.integrator.gbuffer import GBuffer, build_gbuffer
 from tpuray_torch.integrator.path_tracer import (
@@ -88,7 +88,8 @@ def render_frame(scene, camera: Camera, state: FrameState, cfg: RenderConfig,
     """Render one frame and advance the temporal state.
 
     static_camera=True takes the denoiser's static-camera specialisation
-    (motion == 0) off the card; the Renderer selects it by still_camera.
+    (motion == 0): its plain branch off the card, K4 at zero motion under
+    cfg.pallas_denoise on it; the Renderer selects it by still_camera.
     Differentiable with enable_svgf=False, or with pallas_denoise=False
     (K4 and K5 are forward-only and raise under grad)."""
     frame = state.frame_idx
@@ -127,20 +128,15 @@ def accumulate(state: FrameState, color: Tensor, cfg: RenderConfig) -> Tensor:
 def denoise_and_advance(state: FrameState, camera: Camera, cfg: RenderConfig,
                         pt_color: Tensor, accum: Tensor, emission: Tensor,
                         albedo: Tensor, gbuf: GBuffer, static_camera: bool = False,
-                        rows: ImageRows | None = None
+                        rows: ImageRows = WHOLE_IMAGE
                         ) -> tuple[FrameState, SVGFOutput, Tensor]:
     """A frame's denoiser and state update from its traced images ->
-    (new_state, svgf, final). rows: the plain stages on those rows of the
-    image (dist/frame.py's row shards); None: svgf_pipeline, K4 and K5
-    under cfg.pallas_denoise."""
+    (new_state, svgf, final). rows: svgf_pipeline's, the whole image or a
+    row shard (dist/frame.py); K4 and K5 under cfg.pallas_denoise."""
     frame = state.frame_idx
     if cfg.enable_svgf:
-        if rows is None:
-            svgf = svgf_pipeline(pt_color, emission, albedo, gbuf, state, cfg,
-                                 static_camera=static_camera)
-        else:
-            svgf = plain_svgf(pt_color, emission, albedo, gbuf, state, cfg,
-                              static_camera=static_camera, rows=rows)
+        svgf = svgf_pipeline(pt_color, emission, albedo, gbuf, state, cfg,
+                             static_camera=static_camera, rows=rows)
         final = svgf.taa if cfg.enable_taa else svgf.modulated
         new_state = state.replace(
             illum_hist=svgf.history_tap, variance_hist=svgf.history_tap_var,
