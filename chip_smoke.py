@@ -21,6 +21,16 @@ instructions in its SASS (cuobjdump -sass), then:
      of a moving 800x800 Renderer, against its plain version, with the
      inputs' shares of sky and fallback pixels and of blocks with a
      fallback pixel;
+ 3b. K4 under reproject_gather="tiled" (the TPU kernel's function: the
+     tile-windowed read in its 32 x 128 tiles) and under fast_reproject=True
+     (the shifted rescue), each on phase 3's inputs and on the same inputs
+     with the motion torn (the right half's history 20 rows and 11 columns
+     off, a block of random motion): one launch a call, history_len equal
+     to the plain version's, every field within rtol 1e-5 / atol 1e-6;
+     each tap's resolved share, and K4's ms under each read beside the
+     exact instance's (the tiled read's window offsets, torch ops, apart);
+     then 3 moving frames of a Renderer under each read (K1 1, K2 2, K4 1,
+     K5 5 a frame);
   4. K5 (atrous_step, a chain of 5 iterations) on K4's output, against its plain
      version, timed at 1 to 5 iterations: each step's time beside the
      chain's;
@@ -35,7 +45,10 @@ instructions in its SASS (cuobjdump -sass), then:
      (validity equal, rtol 1e-5 / atol 1e-6) and against the whole-image
      kernels (phase 3's history taps lie inside the halo: K4 exact, K5
      within rtol 1e-5); the launches, and each kernel's ms on one shard's
-     rows with and without the window;
+     rows with and without the window; then K4 under the tiled read at 2
+     and 4 shards (tpuray's sharded read: 40 x 160 tiles from the first
+     row of the shard extended by the halo 32, as svgf_pipeline runs it)
+     against its plain version (history_len equal) and its ms on one shard;
   5. slice 2's path: Renderer under the slice config (SVGF and TAA on, the
      default view), 2 warm-up frames, then 16 moving-camera frames with the
      launch counts set to 0 just before and read just after; checks the
@@ -117,7 +130,9 @@ instructions in its SASS (cuobjdump -sass), then:
      denoiser with the launch counts set to 0 just before and read just
      after (K1 1, K2 2 a frame, or 4 with the residual pass; K4 1 and K5
      5 a frame), bit-equal to render_frame at compact_frac 0 (final and
-     history_len), within the image tolerance at compact_frac 0.5; one
+     history_len), also under reproject_gather="tiled" and under
+     fast_reproject=True (K4's tiled and fast rules, K4 1 and K5 5 a
+     frame), within the image tolerance at compact_frac 0.5; one
      sharded frame of the 20k file scene (a forest: K6 6 a frame, 11 with
      the residual pass; K4 1, K5 5) against render_frame; render_tiled at 800x800 bit-equal to trace_paths on the
      same row-major rays (K1 1, K2 2), and K1 timed on those rays beside
@@ -250,9 +265,12 @@ H = W = 800
 SLICE = RenderConfig(width=W, height=H, compact_frac=0.0, compact_auto=False)
 SLICE_PLAIN = dataclasses.replace(SLICE, pallas_denoise=False)
 SLICE1 = dataclasses.replace(SLICE, enable_svgf=False)  # slice 1: SVGF off
+TILED = dataclasses.replace(SLICE, reproject_gather="tiled")  # the tile-windowed read
+FAST = dataclasses.replace(SLICE, fast_reproject=True)  # the shifted rescue
 SEPARATE = dataclasses.replace(SLICE, fused_secondary=False)  # slice 3, path 2
 MIS = dataclasses.replace(SLICE, integrator="mis")  # slice 3, path 3
 TIMED_FRAMES = 16
+READ_FRAMES = 3  # phase 3b's Renderer frames under each history read
 SLICE1_FRAMES = 8
 SLICE3_FRAMES = 8  # MIS and separate-walk frames
 FOREST_CHECK_SIZE = 256  # forest frames against the plain versions
@@ -423,6 +441,89 @@ def check_k5_iterations(name, k5_args, cfg) -> float:
     return err
 
 
+def discontinuous(k4_in: dict) -> dict:
+    """Phase 3's inputs with the motion torn: the right half's history 20
+    rows up and 11 columns right of where phase 3 has it, and a block of
+    per-pixel random motion of up to 16 pixels."""
+    m = k4_in["motion"].clone()
+    m[:, W // 2:, 0] -= 11.0 / W
+    m[:, W // 2:, 1] += 20.0 / H
+    g = torch.Generator(device=m.device).manual_seed(5)
+    m[300:420, 200:520] = (torch.rand((120, 320, 2), generator=g, device=m.device) - 0.5) \
+        * (32.0 / W)
+    return dict(k4_in, motion=m.contiguous())
+
+
+def tap_shares(cfg, k4_in) -> dict:
+    """The share of the non-sky pixels at which each tap of the TPU kernel's
+    tile-windowed read resolves, each pixel in its own tile's window."""
+    from tpuray_torch.denoise import tile_gather as tg
+    from tpuray_torch.denoise.reproject import RING, back_project
+    t = kr.tiles(cfg, k4_in["motion"], None)
+    b = back_project(k4_in["motion"], 0, H, W, cfg)
+    iy = torch.arange(H, device=b.y0i.device)[:, None]
+    ix = torch.arange(W, device=b.y0i.device)[None, :]
+    rg, cg = tg.edge_residuals(b.y0i, b.x0i)
+    res = tg.resolve(rg, cg, iy, ix, H, W, t.oy[iy // t.ty, ix // t.tx],
+                     t.ox[iy // t.ty, ix // t.tx], RING, t.span)
+    live = k4_in["linear_z"] != 1.0
+    return {f"{dy},{dx}": round(float(r[0][live].float().mean()), 5)
+            for (dy, dx), r in res.items()}
+
+
+def phase_k4_reads(scene, k4_in: dict, exact_ms: float) -> dict:
+    """3b. K4 under the tile-windowed read (the TPU kernel's function) and
+    the shifted rescue, each on phase 3's inputs and on their torn motion
+    (discontinuous): one launch a call, history_len equal to the plain
+    version's and every field within RTOL / ATOL; each tap's resolved share;
+    K4's ms under each read beside the exact instance's; then READ_FRAMES
+    moving frames of a Renderer under each read (K4 1 and K5 5 a frame).
+    -> {read: (max |diff|, ms, plain ms)}"""
+    torn = discontinuous(k4_in)
+    out = {}
+    for read, cfg in (("tiled", TILED), ("fast", FAST)):
+        r = Renderer(scene, cfg)
+        cam = OrbitCamera(width=W, height=H)
+        reset_launches()
+        for _ in range(READ_FRAMES):
+            cam.rotate(0.5, 0.0)
+            frame = r.step(cam.snapshot())
+        run = launches()
+        expect_launches(f"Renderer, {read} read", run, dict(
+            k1=READ_FRAMES, k2=2 * READ_FRAMES, k3=0, k4=READ_FRAMES,
+            k5=cfg.num_atrous_iterations * READ_FRAMES, k6=0, k7=0))
+        check_image(frame, svgf_on=True)
+        log(f"Renderer, {read} read: {READ_FRAMES} moving frames at {W}x{H}, launches {run}, "
+            f"history_len max {float(frame.svgf.history_len.max()):.0f}")
+        errs = []
+        for name, x in (("phase 3", k4_in), ("discontinuous", torn)):
+            if read == "tiled":
+                log(f"K4 tiled, {name}: resolved share of each tap (dy,dx) "
+                    + json.dumps(tap_shares(cfg, x)))
+            reset_launches()
+            got = kr.reproject_variance_fused(cfg, **x)
+            run = launches()
+            ref, plain_ms = once_ms(lambda: kr.reproject_variance_plain(cfg, **x))
+            if run["k4"] != 1 or not torch.equal(got.history_len, ref.history_len):
+                raise AssertionError(f"K4 {read}, {name}: launches {run}, history_len differs "
+                                     f"on {int((got.history_len != ref.history_len).sum())}")
+            errs.append(check_fields(f"K4 {read}, {name}, vs plain", got, ref))
+            sky = x["linear_z"] == 1.0
+            hl = ref.history_len
+            log(f"K4 {read}, {name}: history_len equal; reprojected "
+                f"{float(((hl > 1) & ~sky).float().mean()):.4f}, restarted "
+                f"{float(((hl == 1) & ~sky).float().mean()):.4f} of the pixels")
+        ms = kernel_ms(lambda: kr.reproject_variance_fused(cfg, **k4_in))
+        extra = ""
+        if read == "tiled":
+            win_ms = kernel_ms(lambda: kr.tiles(cfg, k4_in["motion"], None))
+            extra = f" (of which the window offsets' torch ops {win_ms:.4f})"
+        log(f"K4 {read}: {ms:.4f} ms{extra} on phase 3's inputs, the exact instance "
+            f"{exact_ms:.4f} ms; plain {plain_ms:.1f} ms")
+        out[read] = (max(errs), ms, plain_ms)
+    return out
+
+
 def slab(x, row0, rows):
     """Rows row0 .. row0 + rows - 1 of a full-image tensor, its edge rows
     replicated past the image (what dist/frame.py:_halo_rows gives the first
@@ -504,11 +605,31 @@ def phase_row_window(k4_in: dict, cfg) -> None:
             f"vs plain {max(errs):.3g}, vs the whole image per step {diffs}")
         if run["k5"] != (n + 1) * cfg.num_atrous_iterations:
             raise AssertionError(f"K5, {n} shards: launches {run}")
+    # the tile-windowed read on the shards, on the rows extended by ROW_HALO
+    # (svgf_pipeline's: the read never leaves them)
+    for n in ROW_SHARDS:
+        reset_launches()
+        got = kr.FusedOutput(*sharded_stage(
+            lambda s, win: kr.reproject_variance_fused(TILED, row_window=win, **s),
+            k4_in, n, ROW_HALO))
+        run = launches()
+        ref = kr.FusedOutput(*sharded_stage(
+            lambda s, win: kr.reproject_variance_plain(TILED, row_window=win, **s),
+            k4_in, n, ROW_HALO))
+        if run["k4"] != n or not torch.equal(got.history_len, ref.history_len):
+            raise AssertionError(f"K4 tiled, {n} shards: launches {run} or the validity "
+                                 "differs from the plain version")
+        err = check_fields(f"K4 tiled, {n} shards, vs plain under the same windows", got, ref)
+        log(f"K4 tiled, {n} shards of {H // n} rows extended by {ROW_HALO}: launches {run}; "
+            f"vs plain max |diff| {err:.3g}")
     # one shard's rows (the second of the last split), with and without the window
     n = ROW_SHARDS[-1]
     rows = H // n
     cut = {name: slab(x, rows - kk, rows + 2 * kk) for name, x in k4_in.items()}
     k4_win = kernel_ms(lambda: kr.reproject_variance_fused(cfg, row_window=(rows - kk, H), **cut))
+    cut_t = {name: slab(x, rows - ROW_HALO, rows + 2 * ROW_HALO) for name, x in k4_in.items()}
+    k4_tiled = kernel_ms(lambda: kr.reproject_variance_fused(
+        TILED, row_window=(rows - ROW_HALO, H), **cut_t))
     k4_none = kernel_ms(lambda: kr.reproject_variance_fused(cfg, **cut))
     k4_whole = kernel_ms(lambda: kr.reproject_variance_fused(cfg, **k4_in))
     parts = []
@@ -522,7 +643,8 @@ def phase_row_window(k4_in: dict, cfg) -> None:
                       kernel_ms(lambda: ka.atrous_step(*cut5, step, cfg))))
     log(f"row window ms (device work), shard 1 of {n} ({rows} rows): K4 on "
         f"{rows + 2 * kk} rows {k4_win:.4f} with the window, {k4_none:.4f} without (the "
-        f"whole {H} rows {k4_whole:.4f}); K5 steps 1..{1 << (cfg.num_atrous_iterations - 1)} "
+        f"whole {H} rows {k4_whole:.4f}), tile-windowed on {rows + 2 * ROW_HALO} rows "
+        f"{k4_tiled:.4f}; K5 steps 1..{1 << (cfg.num_atrous_iterations - 1)} "
         f"with / without " + ", ".join(f"{a:.4f} / {b:.4f}" for a, b in parts)
         + f"; sum {sum(a for a, _ in parts):.4f} / {sum(b for _, b in parts):.4f}")
 
@@ -1098,6 +1220,8 @@ def _phase_dist(scene, dev, mesh) -> tuple[dict, float, float]:
     # rank's rows): bit-equal to render_frame at compact_frac 0, the last
     # frame a still one (static_camera=True), close to it under compaction
     for name, cfg in (("compact_frac 0", SLICE),
+                      ("compact_frac 0, tile-windowed read", TILED),
+                      ("compact_frac 0, shifted rescue", FAST),
                       (f"compact_frac {DIST_COMPACT}",
                        dataclasses.replace(SLICE, compact_frac=DIST_COMPACT))):
         still = cfg.compact_frac == 0.0
@@ -2147,6 +2271,9 @@ def main() -> None:
     log(f"K4: kernel {k4_ms:.4f} ms (one launch; shared memory a block "
         f"{smem('reproject_variance')} bytes), plain {k4_plain_ms:.1f} ms, bound "
         f"{k4_bound[0]:.4f} ms by {k4_bound[1]}")
+
+    # ---- 3b. K4 under the tile-windowed read and the shifted rescue
+    k4_reads = phase_k4_reads(scene, k4_in, k4_ms)
 
     # ---- 4. K5: the 5-iteration chain on K4's output
     k5_args = (k4.var_illum, k4.var_variance, k4_in["normal"], k4_in["linear_z"],

@@ -161,12 +161,51 @@ def test_reproject_matches(name):
         np.testing.assert_array_equal(got.illum[:6].numpy(), a["color"][:6])
 
 
+@pytest.mark.parametrize("read", ["tiled", "fast"])
+@pytest.mark.parametrize("name", REPROJECT_CASES[:-1] + ["torn"])
+def test_reproject_reads_match(read, name):
+    """reproject under reproject_gather="tiled" (the tile-windowed read) and
+    under fast_reproject=True (the shifted rescue) against tpuray's under
+    the same config; "torn": a motion field with a jump of 7 and 5 pixels
+    down the middle and a block of per-pixel random motion."""
+    rng = np.random.default_rng(200 + REPROJECT_CASES.index(name)
+                                if name in REPROJECT_CASES else 299)
+    if name == "torn":
+        yy, xx = np.mgrid[0:H, 0:W]
+        m = _motion(np.where(xx < W // 2, 0.6, -6.6), np.where(xx < W // 2, -0.3, 4.7))
+        m[20:28, 4:16] = (rng.random((8, 12, 2)) - 0.5) * 0.2
+        a, quirks = reproject_arrays(rng, m), False
+    else:
+        a, quirks = _case(name, rng)
+    kw = dict(reproject_gather="tiled") if read == "tiled" else dict(fast_reproject=True)
+    ref = jreproject.reproject(**{k: jnp.asarray(v) for k, v in a.items()},
+                               cfg=JRenderConfig(width=W, height=H, reference_quirks=quirks, **kw))
+    got = reproject.reproject(**{k: _t(v) for k, v in a.items()},
+                              cfg=RenderConfig(width=W, height=H, reference_quirks=quirks, **kw))
+    for f in ("illum", "variance", "moments"):
+        _close(getattr(got, f), getattr(ref, f), f"{read} {name}: {f}")
+    np.testing.assert_array_equal(got.history_len.numpy(), np.asarray(ref.history_len))
+    extended = (got.history_len.numpy() > 1.0).mean()
+    if name == "torn" and read == "tiled":
+        # the image is one 40 x 160 tile, whose residuals span more than the
+        # window: the tiled read resolves almost nothing
+        assert extended < 0.05
+    else:
+        assert extended > 0.3
+
+
 def test_gather_mode_raises_for_tpu_only_reads():
-    for cfg in (RenderConfig(reproject_gather="tiled"),
-                RenderConfig(fast_reproject=True)):
-        with pytest.raises(NotImplementedError, match="TPU-only"):
-            reproject.gather_mode(cfg)
+    """Every read of tpuray's RenderConfig resolves; "auto" is the exact read
+    on every device; an unknown read raises. With a row window the shifted
+    rescue reads tile-windowed, as tpuray's sharded stage does."""
     assert reproject.gather_mode(RenderConfig()) == "exact"
+    assert reproject.gather_mode(RenderConfig(reproject_gather="exact")) == "exact"
+    assert reproject.gather_mode(RenderConfig(reproject_gather="tiled")) == "tiled"
+    assert reproject.gather_mode(RenderConfig(fast_reproject=True)) == "fast"
+    assert reproject.history_read(RenderConfig(fast_reproject=True), (8, 64)) == "tiled"
+    assert reproject.history_read(RenderConfig(), (8, 64)) == "exact"
+    with pytest.raises(ValueError, match="unknown reproject_gather"):
+        reproject.gather_mode(RenderConfig(reproject_gather="quad"))
 
 
 def test_estimate_variance_matches():

@@ -9,22 +9,30 @@ On CPU tensors the wrappers run their plain versions and count no launch.
   atol 2e-5, that test's own tolerance. The two sides differ by last-bit
   rounding (the TPU kernel and XLA contract multiply-adds; the port does
   not), grown by the seven squarings of the normal weight.
-- K4 (kernels/reproject.py:reproject_variance_fused) against
+- K4 (kernels/reproject.py:reproject_variance_fused) under
+  reproject_gather="tiled" computes what the TPU kernel computes: against
   tpuray.kernels.reproject_pallas.reproject_variance_fused(interpret=True)
-  on one smooth-motion case with a rescue block, at the size of
-  tests/test_reproject_pallas.py, on the interior. The TPU kernel computes
-  the tile-windowed history read, the port the exact one; under constant
-  motion the two read the same texels away from the border, so the
-  tolerance is the same 2e-5, history_len exact. The reprojected fields
-  agree from 4 pixels in (that test's interior: the bilinear and rescue
-  taps lie inside the image); the fallback's 7x7 window reads them, so the
-  variance fields agree from 4 + 3 pixels in.
+  on the five cases of tests/test_reproject_pallas.py (smooth motion with a
+  rescue block, the fallback and a sky band, a varying field, per-pixel
+  random motion, a shape no multiple of the tiles) over the whole image,
+  border included: rtol 2e-5 / atol 2e-5, history_len exact.
+- K4 under fast_reproject=True against tpuray's reproject(fast_reproject=
+  True) composed with estimate_variance, on the same cases, at the same
+  tolerance.
+- K4 under the default config (the exact read) against the TPU kernel on
+  one smooth-motion case, on the interior only: there the exact and the
+  tile-windowed reads take the same texels. The reprojected fields agree
+  from 4 pixels in (the bilinear and rescue taps lie inside the image);
+  the fallback's 7x7 window reads them, so the variance fields agree from
+  4 + 3 pixels in.
 """
 import numpy as np
 import pytest
 import torch
 import jax.numpy as jnp
 
+from tpuray.denoise.reproject import reproject as j_reproject
+from tpuray.denoise.variance import estimate_variance as j_estimate_variance
 from tpuray.kernels import atrous_pallas, reproject_pallas
 from tpuray.scene.config import RenderConfig as JRenderConfig
 
@@ -124,8 +132,105 @@ def test_k4_matches_pallas_on_the_interior():
     assert (hl < 4).any() and (hl >= 4).any()  # both sides of the fallback
 
 
+def _pallas_case(name):
+    """tests/test_reproject_pallas.py's inputs of case `name` (its seed, 7)."""
+    rng = np.random.default_rng(7)
+    h, w = (48, 200) if name == "non_divisible" else (64, 256)
+    yy, xx = np.meshgrid(np.arange(h, dtype=np.float32), np.arange(w, dtype=np.float32),
+                         indexing="ij")
+    motions = dict(
+        smooth=(np.full((h, w), 2.25 / w), np.full((h, w), 1.5 / h)),
+        fallback_sky=(np.full((h, w), -1.75 / w), np.full((h, w), 0.5 / h)),
+        varying=((xx / w - 0.5) * 4.0 / w + 1.2 / w, (yy / h - 0.5) * 3.0 / h - 0.7 / h),
+        non_divisible=(np.full((h, w), 1.25 / w), np.full((h, w), -0.5 / h)))
+    normal = np.broadcast_to(np.float32([0.0, 0.0, 1.0]), (h, w, 3))
+    z = (rng.random((h, w)) * 0.5 + 0.2).astype(np.float32)
+    motion = (np.stack(motions[name], -1) if name in motions
+              else rng.random((h, w, 2)) - 0.5).astype(np.float32)  # "wild"
+    a = dict(
+        color=rng.random((h, w, 3)).astype(np.float32),
+        emission=np.zeros((h, w, 3), np.float32),
+        albedo=np.full((h, w, 3), 0.5, np.float32),
+        motion=motion, normal=normal, linear_z=z,
+        fwidth_normal=np.full((h, w), 0.05, np.float32),
+        fwidth_z=np.full((h, w), 0.01, np.float32),
+        prev_illum=rng.random((h, w, 3)).astype(np.float32),
+        prev_variance=rng.random((h, w)).astype(np.float32),
+        prev_normal=normal, prev_linear_z=z.copy(),
+        prev_moments=rng.random((h, w, 2)).astype(np.float32),
+        prev_history_len=np.full((h, w), 5.0, np.float32))
+    if name == "smooth":
+        a["prev_linear_z"][8:16, 8:16] += 5.0  # the rescue runs in this block
+    if name == "fallback_sky":
+        a["prev_history_len"] = (rng.random((h, w)) * 6).astype(np.float32)
+        a["linear_z"][0:8] = 1.0
+        a["prev_linear_z"] = a["linear_z"].copy()
+    return a
+
+
+PALLAS_CASES = ["smooth", "fallback_sky", "varying", "wild", "non_divisible"]
+
+
+def _assert_k4_matches(got, ref):
+    assert got._fields == ref._fields
+    for f in got._fields:
+        if f == "history_len":
+            np.testing.assert_array_equal(got.history_len.numpy(), np.asarray(ref.history_len))
+        else:
+            _close(getattr(got, f), getattr(ref, f), f)
+
+
+@pytest.mark.parametrize("name", PALLAS_CASES)
+def test_k4_tiled_matches_pallas(name):
+    """The whole image, the border and the tiles' seams included."""
+    a = _pallas_case(name)
+    h, w = a["linear_z"].shape
+    ref = reproject_pallas.reproject_variance_fused(
+        **{k: jnp.asarray(v) for k, v in a.items()},
+        cfg=JRenderConfig(width=w, height=h, reproject_gather="tiled"), interpret=True)
+    reproject.reset_launches()
+    got = reproject.reproject_variance_fused(
+        cfg=RenderConfig(width=w, height=h, reproject_gather="tiled"),
+        **{k: _t(v) for k, v in a.items()})
+    assert reproject.LAUNCHES["k4"] == 0
+    _assert_k4_matches(got, ref)
+    hl = got.history_len.numpy()
+    if name == "wild":
+        assert hl.mean() < 3.0  # most reprojections fail
+    else:
+        assert (hl > 1.0).mean() > 0.5  # most extend their history
+    # the exact read gives another function on every case but the varying
+    # field's smooth interior
+    exact = reproject.reproject_variance_fused(
+        cfg=RenderConfig(width=w, height=h), **{k: _t(v) for k, v in a.items()})
+    assert not torch.equal(exact.rep_illum, got.rep_illum)
+
+
+@pytest.mark.parametrize("name", PALLAS_CASES)
+def test_k4_fast_matches_tpuray(name):
+    a = _pallas_case(name)
+    h, w = a["linear_z"].shape
+    jcfg = JRenderConfig(width=w, height=h, fast_reproject=True)
+    ja = {k: jnp.asarray(v) for k, v in a.items()}
+    rep = j_reproject(**ja, cfg=jcfg)
+    var = j_estimate_variance(rep.illum, rep.variance, rep.moments, rep.history_len,
+                              ja["normal"], ja["linear_z"], ja["fwidth_z"], jcfg)
+    ref = reproject.FusedOutput(rep_illum=rep.illum, rep_variance=rep.variance,
+                                var_illum=var.illum, var_variance=var.variance,
+                                moments=rep.moments, history_len=rep.history_len)
+    got = reproject.reproject_variance_fused(
+        cfg=RenderConfig(width=w, height=h, fast_reproject=True),
+        **{k: _t(v) for k, v in a.items()})
+    _assert_k4_matches(got, ref)
+
+
 def test_k4_wrapper_raises_for_tpu_only_reads():
-    x = torch.zeros((4, 4))
-    with pytest.raises(NotImplementedError, match="TPU-only"):
-        reproject.reproject_variance_fused(
-            cfg=RenderConfig(reproject_gather="tiled"), color=x)
+    """The wrapper takes every read of tpuray's RenderConfig and raises for
+    a read it does not know."""
+    a = {k: _t(v[:8, :16]) for k, v in _pallas_case("smooth").items()}
+    for cfg in (RenderConfig(reproject_gather="tiled"), RenderConfig(fast_reproject=True),
+                RenderConfig(reproject_gather="exact")):
+        out = reproject.reproject_variance_fused(cfg=cfg, **a)
+        assert all(bool(torch.isfinite(x).all()) for x in out)
+    with pytest.raises(ValueError, match="unknown reproject_gather"):
+        reproject.reproject_variance_fused(cfg=RenderConfig(reproject_gather="quad"), **a)

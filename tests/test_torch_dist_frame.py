@@ -104,11 +104,13 @@ def assert_images_close(a, b, tol=5e-4, outlier_frac=0.005, outlier_max=0.1,
 
 @pytest.fixture(scope="module")
 def sharded(tmp_path_factory):
-    """{world size: check_job's frames}, worlds 2 and 4 launched at once."""
+    """{world size: check_job's frames}, worlds 2 and 4 launched at once;
+    world 4 also renders the moving frames under the tiled read."""
     d = tmp_path_factory.mktemp("dist_frame")
     out = {n: str(d / f"w{n}.npz") for n in (1, 2, 4)}
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        runs = [pool.submit(dryrun.launch, n, "cpu", out[n], ("frames",), 240.0)
+        runs = [pool.submit(dryrun.launch, n, "cpu", out[n],
+                            ("frames", "tiled_read") if n == 4 else ("frames",), 240.0)
                 for n in (2, 4)]
         dryrun.check_job(make_mesh("cpu"), out[1], ("frames",))
         for r in runs:
@@ -251,13 +253,23 @@ def test_still_frame_matches_tpuray(sharded, tpuray_frames, den):
                         msg="still frame, port vs tpuray")
 
 
-@pytest.mark.parametrize("den", DENOISERS)
+@pytest.mark.parametrize("den", DENOISERS + [f"{d}_tiled_read" for d in DENOISERS])
 def test_moving_frames_match_tpuray(sharded, tpuray_frames, den):
     """Frame 0 has no history: the image tolerance. Frame 1 reads the
     history: within the image tolerance of tpuray's exact read, and within
     the tile-windowed read's divergence of tpuray's sharded frame, on the
     pixels where tpuray's two reads differ. tpuray's config is the port's:
-    its sharded frame denoises with XLA's stencils either way."""
+    its sharded frame denoises with XLA's stencils either way.
+    *_tiled_read: the port's sharded frame under reproject_gather="tiled"
+    reads as tpuray's sharded frame does: both moving frames within the
+    image tolerance of tpuray's."""
+    if den.endswith("_tiled_read"):
+        for i in range(2):
+            assert_images_close(sharded[4][f"{den}_moving_final_{i}"],
+                                tpuray_frames["moving"][i],
+                                msg=f"frame {i}, port (tiled read) vs tpuray's sharded frame")
+        assert sharded[4][f"{den}_moving_state_history_len"].max() == 2.0
+        return
     port = [sharded[4][f"{den}_moving_final_{i}"] for i in range(2)]
     assert_images_close(port[0], tpuray_frames["moving"][0], msg="frame 0, port vs tpuray")
     assert_images_close(port[1], tpuray_frames["exact"][1],
@@ -547,6 +559,48 @@ def test_k4_motion_beyond_the_halo():
     differs = (var.illum != kern[2]).any(-1) | (var.variance != kern[3])
     rows = np.nonzero(differs.numpy().any(1))[0]
     assert len(rows) and rows.min() >= 9 and rows.max() <= 18, rows
+
+
+def test_k4_tiled_shard_edges():
+    """The tiled read on 2 shards of 16 rows, halo 4. A pixel's tiled read
+    depends on the tiles of the stage that reads it, which start at the
+    stage's first row. K4 (on the rows extended by the halo, as
+    svgf_pipeline runs it under the tiled read) reprojects the 3 rows past
+    its shard that its fallback reads in its own tiles; the plain stages
+    take them from the neighbour, which reads them in its tiles. Rows 6-7
+    hold history 5 rows up (a residual past the span of the other rows'
+    0): they lower the window of shard 0's one tile (rows -4..19), so its
+    rows do not resolve but for rows 6-7, while shard 1's tile (rows
+    12..35) resolves its rows. The reprojections of the shards' own rows
+    are equal (K4 and its plain version are the same function); the
+    fallback differs on rows 13-15, which read rows 16-18 as shard 0
+    reprojects them (failed, where shard 1 resolves them), and on rows
+    16-18, which read rows 13-15 as shard 1 reprojects them (resolved,
+    where shard 0 fails them); nowhere else."""
+    halo, cfg = 4, RenderConfig(reproject_gather="tiled")
+    rng = np.random.default_rng(91)
+    yy = np.arange(H)[:, None] + np.zeros((1, W))
+    a = reproject_arrays(rng, _motion(0.25, np.where((yy >= 6) & (yy < 8), 5.0, 0.0), H, W),
+                         H, W, hist=1 + np.floor(rng.random((H, W)) * 2))
+    ta = {n: _t(v) for n, v in a.items()}
+
+    def k4(s, win):
+        return tuple(kreproject.reproject_variance_fused(cfg, row_window=win, **s))
+
+    kern = kreproject.FusedOutput(*_sharded_stage(k4, ta, 2, halo))
+    rep = _sharded_stage(lambda s, win: tuple(reproject.reproject(**s, cfg=cfg,
+                                                                  row_window=win)),
+                         ta, 2, halo)
+    var = variance.estimate_variance(*rep, _t(a["normal"]), _t(a["linear_z"]),
+                                     _t(a["fwidth_z"]), cfg)
+    for x, y in zip((kern.rep_illum, kern.rep_variance, kern.moments, kern.history_len), rep):
+        assert torch.equal(x, y)
+    hl = kern.history_len.numpy()
+    assert (hl[:16][[0, 1, 2, 3, 4, 5, 8, 9, 10, 11]] == 1.0).all()  # shard 0: no window
+    assert (hl[16:] > 1.0).mean() > 0.9                             # shard 1 resolves
+    differs = (var.illum != kern.var_illum).any(-1) | (var.variance != kern.var_variance)
+    np.testing.assert_array_equal(np.nonzero(differs.numpy().any(1))[0],
+                                  [13, 14, 15, 16, 17, 18])
 
 
 @pytest.mark.parametrize("k", [1, 3])

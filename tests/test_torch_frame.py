@@ -196,10 +196,31 @@ def test_still_camera_is_off_the_card_only():
     ("fast_reproject", True, "TPU-only"),
 ])
 def test_unported_config_raises(scenes, field, value, item):
-    _, ts = scenes
-    cfg = RenderConfig(width=16, height=16, **dict(SVGF_SLICE, **{field: value}))
-    with pytest.raises(NotImplementedError, match=item):
-        tpuray_torch.Renderer(ts, cfg, device="cpu")
+    """The two history reads tpuray keeps for its TPU ("TPU-only" in the
+    ids), which the port refused until it ported them: the Renderer takes
+    each, and 3 moving frames of render_frame under it (svgf_frames's
+    camera path) equal tpuray's render_frame under the same config, with
+    the plain stages on both sides (tpuray's CPU frame runs XLA's), within
+    the image tolerance."""
+    from tpuray.render.frame_state import FrameState as JFrameState
+    from tpuray.render.renderer import render_frame as j_render_frame
+    js, ts = scenes
+    n = W  # svgf_frames's size and camera path
+    kw = dict(SVGF_SLICE, pallas_denoise=False, **{field: value})
+    cfg = RenderConfig(width=n, height=n, **kw)
+    assert getattr(tpuray_torch.Renderer(ts, cfg, device="cpu").cfg, field) == value
+    jcfg = JRenderConfig(width=n, height=n, **kw)
+    jcam, tcam = JOrbitCamera(width=n, height=n), OrbitCamera(width=n, height=n)
+    jstate, tstate = JFrameState.initial(n, n), FrameState.initial(n, n)
+    for frame in range(3):
+        jcam.rotate(0.5, 0.0)
+        tcam.rotate(0.5, 0.0)
+        jstate, jo = j_render_frame(js, jcam.snapshot(), jstate, jcfg, n, n)
+        with torch.no_grad():
+            tstate, to = render_frame(ts, tcam.snapshot(), tstate, cfg, n, n)
+        assert bool(torch.isfinite(to.final).all())
+        assert_images_close(to.final.numpy(), jo.final, msg=f"{item} {field} frame {frame}")
+    assert float(tstate.history_len.max()) == 3.0  # the history carried over
 
 
 @pytest.mark.parametrize("field,value", [

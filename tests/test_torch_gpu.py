@@ -6,7 +6,9 @@ against K3 on that class alone), K3 (per-ray origins over the wide
 records; also the five walks of a separate-walk and a MIS frame), K4 and K5 (the
 denoiser; also at ragged and tiny sizes and at 1080p, on sky, at every
 history tap, with no pixel and every pixel taking K4's fallback, and on a
-sharded frame's row window, with a motion beyond the halo too), K6
+sharded frame's row window, with a motion beyond the halo too; under
+the tile-windowed and the shifted-rescue reads, whole image and row
+window), K6
 (chunked forests of 8 and 128 chunks), K7 (the one-hot
 hi/lo gather at each compile-time width and the run-time one, with ragged
 N, a misaligned table and indices outside the table), frames of every path through them, and a train step's
@@ -403,6 +405,50 @@ def test_k4_matches_plain(cuda_scene, quirks):
         _assert_close(getattr(got, f), getattr(ref, f), f)
     hl = ref.history_len[16:]
     assert bool((hl == 1).any()) and bool((hl > 4).any())  # both branches ran
+
+
+@pytest.mark.parametrize("read", ["tiled", "fast"])
+@pytest.mark.parametrize("quirks", [False, True])
+def test_k4_reads_match_plain(cuda_scene, read, quirks):
+    """K4's tile-windowed rule (the TPU kernel's geometry: 256 x 384 is
+    8 x 3 tiles) and its shifted-rescue rule against their plain versions,
+    one launch each; the inputs' moving block tears the motion field."""
+    a = _denoise_inputs(14)
+    a = dict(zip(a, _cuda(*a.values())))
+    kw = dict(reproject_gather="tiled") if read == "tiled" else dict(fast_reproject=True)
+    cfg = RenderConfig(width=384, height=256, reference_quirks=quirks, **kw)
+    kr.reset_launches()
+    got = kr.reproject_variance_fused(cfg, **a)
+    assert kr.LAUNCHES["k4"] == 1
+    ref = kr.reproject_variance_plain(cfg, **a)
+    torch.cuda.synchronize()
+    assert torch.equal(got.history_len, ref.history_len)
+    for f in got._fields:
+        _assert_close(getattr(got, f), getattr(ref, f), f)
+    exact = kr.reproject_variance_fused(RenderConfig(width=384, height=256,
+                                                     reference_quirks=quirks), **a)
+    assert not torch.equal(exact.history_len, got.history_len)  # another read
+
+
+@pytest.mark.parametrize("shard", [0, 1, 3])
+def test_k4_tiled_row_window_matches_plain(cuda_scene, shard):
+    """K4's tile-windowed rule on one of 4 shards of 64 rows extended by
+    the halo 32 (as svgf_pipeline runs it) against its plain version,
+    tpuray's sharded stage: the tiles start at the extended rows' first."""
+    a = _denoise_inputs(22)
+    full = dict(zip(a, _cuda(*a.values())))
+    h, rows, k = 256, 64, 32
+    row0 = shard * rows - k
+    s = {n: _slab(x, row0, rows + 2 * k) for n, x in full.items()}
+    cfg = RenderConfig(width=384, height=h, reproject_gather="tiled")
+    kr.reset_launches()
+    got = kr.reproject_variance_fused(cfg, row_window=(row0, h), **s)
+    assert kr.LAUNCHES["k4"] == 1
+    ref = kr.reproject_variance_plain(cfg, row_window=(row0, h), **s)
+    torch.cuda.synchronize()
+    assert torch.equal(got.history_len, ref.history_len)
+    for f in got._fields:
+        _assert_close(getattr(got, f), getattr(ref, f), f)
 
 
 @pytest.mark.parametrize("n_iters", [1, 2, 3, 4, 5])

@@ -269,7 +269,8 @@ def test_param_reaches_next_frame(monkeypatch, auto):
 @pytest.mark.parametrize("auto", [True, False], ids=["compact_auto", "fixed"])
 def test_renderer_cfg_assignment(monkeypatch, auto):
     """Renderer.cfg = ... reaches the next step; the setter checks the
-    config and resolves enable_aniso="auto" as the constructor does."""
+    config (the tile-windowed read is taken, an unknown read raises) and
+    resolves enable_aniso="auto" as the constructor does."""
     r = Renderer(make_test_scene(subdiv=0, env_width=16),
                  RenderConfig(**CFG, compact_auto=auto), device="cpu")
     cam = OrbitCamera(width=32, height=32).snapshot()
@@ -277,8 +278,10 @@ def test_renderer_cfg_assignment(monkeypatch, auto):
     got = _next_frame_cfg(monkeypatch, trenderer, r, cam)
     assert got.sigma_n == 64.0 and got.enable_aniso is False
     assert got == r.frame_cfg == r.cfg
-    with pytest.raises(NotImplementedError):
-        r.cfg = r.cfg.replace(reproject_gather="tiled")
+    r.cfg = r.cfg.replace(reproject_gather="tiled")
+    assert _next_frame_cfg(monkeypatch, trenderer, r, cam).reproject_gather == "tiled"
+    with pytest.raises(ValueError, match="unknown reproject_gather"):
+        r.cfg = r.cfg.replace(reproject_gather="quad")
 
 
 @pytest.mark.parametrize("auto", [True, False], ids=["compact_auto", "fixed"])

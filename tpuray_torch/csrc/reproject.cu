@@ -7,15 +7,30 @@
 // alpha_min and history_cap, then the 7x7 cross-bilateral variance fallback
 // where the history is shorter than 4 frames.
 //
-// Semantics. The TPU kernel computes the tile-windowed ("tiled") history
-// read, the TPU's answer to slow gathers. This kernel computes the JAX
-// package's exact path instead, reproject(reproject_gather="exact") plus
-// estimate_variance (tpuray_torch/denoise/reproject.py and variance.py,
-// its plain versions), including the clamps of the quad-packed history
-// fetch: bilinear taps come from the 2x2 quad at the clamped base, whose
-// neighbours clamp at the last row/column, with validity on the unclamped
-// position; rescue taps come from 4 quads with bases clamped to
-// [0, dim - 2], so an edge tap can count twice at the border.
+// Semantics. The kernel computes reproject followed by estimate_variance
+// (tpuray_torch/denoise/reproject.py and variance.py, and kernels/
+// reproject.py's plain versions) under one of four tap rules, a template
+// argument beside the row window, each its own instance:
+//  * kExact: the JAX package's exact path, reproject(reproject_gather=
+//    "exact"), including the clamps of the quad-packed history fetch:
+//    bilinear taps come from the 2x2 quad at the clamped base, whose
+//    neighbours clamp at the last row/column, with validity on the unclamped
+//    position; rescue taps come from 4 quads with bases clamped to
+//    [0, dim - 2], so an edge tap can count twice at the border.
+//  * kTiled: what the TPU kernel (reproject_pallas._kernel) computes, the
+//    tile-windowed read in its geometry: each 32 x 128 tile's window offsets
+//    (passed in, computed by the wrapper with torch ops) gate every bilinear
+//    and ring tap by the resolution predicate of tile_gather.py:resolve;
+//    a resolved tap is the exact read at (clip(y0) + dy, clip(x0) + dx), so
+//    it is read directly. Every reprojection of a block, its fallback halo
+//    included, takes the window of the TPU tile holding the block, as the
+//    TPU kernel reprojects its extended block with its tile's window.
+//  * kTiledRows: tpuray's sharded stage, tile_gather's 40 x 160 tiles on a
+//    row window, each pixel in its own tile.
+//  * kFast: the exact bilinear taps; rescue tap (dy, dx) is the base tap of
+//    pixel (y + dy, x + dx) under the edge clamp, with that pixel's bounds.
+// The tiled rules' 9-tap rescue reads around the clipped base and drops
+// the taps that do not resolve; it never runs the exact rule's quads.
 //
 // What bounds it on this card: device-memory bytes, 28 floats read and 11
 // written per pixel (~100 MB at 800x800, 0.03 ms); the history gather
@@ -178,10 +193,93 @@ struct Rep {
   float z;
 };
 
-// the exact reprojection of pixel (x, y) of memory (local row y); a sky
-// pixel's outputs are its passthrough, so it reads no history
+// the history reads (tap rules): the exact read, the TPU kernel's tile-
+// windowed read (its geometry, whole image), tpuray's sharded tile-windowed
+// read (tile_gather's geometry, a row window) and the shifted rescue
+enum Rule { kExact = 0, kTiled = 1, kTiledRows = 2, kFast = 3 };
+
+// the tile-windowed rules' windows, computed by the wrapper
+struct Tiles {
+  const int* __restrict__ oy;  // (nty, ntx) window offsets
+  const int* __restrict__ ox;
+  int nty, ntx, ty, tx, span;
+};
+
+// the back-projected history position of pixel (x, y) of memory (local row y)
+struct Base {
+  float fx, fy, frac_x, frac_y;
+  int x0, y0;  // the floor of (fx, fy); y0 an image row
+};
+
 template <bool kWin>
-__device__ __forceinline__ Rep reproject_px(const Inputs& in, const Params& p, int x, int y) {
+__device__ __forceinline__ Base back_project(const Inputs& in, const Params& p, int x, int y) {
+  const int i = y * p.w + x;
+  const int w = p.w, h = kWin ? p.gh : p.h, row0 = kWin ? p.row0 : 0;
+  const float wf = static_cast<float>(w), hf = static_cast<float>(h);
+  const float uv_x = (static_cast<float>(x) + 0.5f) / wf - in.motion[2 * i];
+  const float uv_y = (static_cast<float>(y + row0) + 0.5f) / hf - in.motion[2 * i + 1];
+  Base b;
+  b.fx = uv_x * wf - 0.5f;
+  b.fy = uv_y * hf - 0.5f;
+  const float x0f = floorf(b.fx), y0f = floorf(b.fy);
+  if (p.quirks) {
+    // jnp.remainder: fmod, then + d where the remainder is negative; d is
+    // 1/w in double rounded to float (on the host), as the plain version's
+    // scalar is
+    const float dx = p.texel_w, dy = p.texel_h;
+    b.frac_x = fmodf(uv_x, dx);
+    b.frac_y = fmodf(uv_y, dy);
+    if (b.frac_x < 0.f) b.frac_x = b.frac_x + dx;
+    if (b.frac_y < 0.f) b.frac_y = b.frac_y + dy;
+  } else {
+    b.frac_x = b.fx - x0f;
+    b.frac_y = b.fy - y0f;
+  }
+  b.x0 = static_cast<int>(x0f);
+  b.y0 = static_cast<int>(y0f);
+  return b;
+}
+
+// a pixel under a tile-windowed rule: the image rows [lo, hi) its read
+// takes, its image row and column, its clipped residuals, its tile's window
+struct Window {
+  int lo, hi, y, x, rp, cp, oy, ox;
+};
+
+// tap (dy, dx) of the tile-windowed read (tpuray_torch/denoise/
+// tile_gather.py:resolve): the neighbour pixel (y + dy, x + dx), clamped to
+// the image, selects its texel (ty, tx) by its residual where it lies in the
+// window (sel); the tap resolves where, besides, the residual is the pixel's
+// own and the texel lies in the image, and then it is the exact read. Past
+// the image the neighbour's base moves with it: kTiled clips it after the
+// move (the TPU kernel's edge-padded planes), kTiledRows before
+// (tile_gather's edge-padded residuals).
+template <int kRule, bool kWin>
+__device__ __forceinline__ bool ring_tap(const Inputs& in, const Params& p, const Tiles& tl,
+                                         const Window& g, int dy, int dx, bool& sel, int& ty,
+                                         int& tx) {
+  const int row0 = kWin ? p.row0 : 0;
+  const int qy = g.y + dy, qx = g.x + dx;
+  const int cy = clampi(qy, g.lo, g.hi - 1), cx = clampi(qx, 0, p.w - 1);
+  const Base b = back_project<kWin>(in, p, cx, cy - row0);
+  if (kRule == kTiled) {
+    ty = clampi(b.y0 + (qy - cy), g.lo, g.hi - 1);
+    tx = clampi(b.x0 + (qx - cx), 0, p.w - 1);
+  } else {
+    ty = clampi(b.y0, g.lo, g.hi - 1) + (qy - cy);
+    tx = clampi(b.x0, 0, p.w - 1) + (qx - cx);
+  }
+  const int rq = ty - qy, cq = tx - qx;
+  sel = rq >= g.oy && rq <= g.oy + tl.span && cq >= g.ox && cq <= g.ox + tl.span;
+  return sel && rq == g.rp && cq == g.cp && ty >= g.lo && ty < g.hi && tx >= 0 && tx < p.w;
+}
+
+// the reprojection of pixel (x, y) of memory (local row y) under rule kRule;
+// (ti, tj) the tile whose window kTiled reads (the block's); a sky pixel's
+// outputs are its passthrough, so it reads no history
+template <int kRule, bool kWin>
+__device__ __forceinline__ Rep reproject_px(const Inputs& in, const Params& p, const Tiles& tl,
+                                            int x, int y, int ti, int tj) {
   const int i = y * p.w + x;
   // w, h: the image's columns and rows; y + row0: the pixel's image row
   const int w = p.w, h = kWin ? p.gh : p.h, row0 = kWin ? p.row0 : 0;
@@ -214,55 +312,80 @@ __device__ __forceinline__ Rep reproject_px(const Inputs& in, const Params& p, i
   }
 
   // back-projected pixel position
-  const float wf = static_cast<float>(w), hf = static_cast<float>(h);
-  const float uv_x = (static_cast<float>(x) + 0.5f) / wf - in.motion[2 * i];
-  const float uv_y = (static_cast<float>(y + row0) + 0.5f) / hf - in.motion[2 * i + 1];
-  const float fx = uv_x * wf - 0.5f;
-  const float fy = uv_y * hf - 0.5f;
-  const float x0f = floorf(fx), y0f = floorf(fy);
-  float frac_x, frac_y;
-  if (p.quirks) {
-    // jnp.remainder: fmod, then + d where the remainder is negative; d is
-    // 1/w in double rounded to float (on the host), as the plain version's
-    // scalar is
-    const float dx = p.texel_w, dy = p.texel_h;
-    frac_x = fmodf(uv_x, dx);
-    frac_y = fmodf(uv_y, dy);
-    if (frac_x < 0.f) frac_x = frac_x + dx;
-    if (frac_y < 0.f) frac_y = frac_y + dy;
-  } else {
-    frac_x = fx - x0f;
-    frac_y = fy - y0f;
-  }
-  const int x0 = static_cast<int>(x0f), y0 = static_cast<int>(y0f);
+  const Base bp = back_project<kWin>(in, p, x, y);
+  const float fx = bp.fx, fy = bp.fy, frac_x = bp.frac_x, frac_y = bp.frac_y;
+  const int x0 = bp.x0, y0 = bp.y0;
 
-  // the 4 bilinear taps: one quad at the clamped base
   const int yc = clampi(y0, 0, h - 1), xc = clampi(x0, 0, w - 1);
   const float wts[4] = {(1.f - frac_x) * (1.f - frac_y), frac_x * (1.f - frac_y),
                         (1.f - frac_x) * frac_y, frac_x * frac_y};
   float hls[4];
   float sum_w = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f}, acc_m[2] = {0.f, 0.f};
   bool any_valid = false;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const HistRow t = fetch(in, local(min(yc + qdy(k), h - 1)), min(xc + qdx(k), w - 1), w);
-    hls[k] = t.hl;
-    const bool v = tap_valid(y0 + qdy(k), x0 + qdx(k), h, p, z, fw_z, n, fw_n, t);
-    any_valid = any_valid || v;
-    const float wv = v ? wts[k] : 0.f;
-    sum_w = sum_w + wv;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[c] = acc[c] + wv * t.iv[c];
-    acc_m[0] = acc_m[0] + wv * t.m[0];
-    acc_m[1] = acc_m[1] + wv * t.m[1];
-  }
-  // a window's pixel whose bilinear or rescue taps leave the rows in memory
-  // fails (the plain version's in_shard)
   bool in_shard = true;
-  if (kWin) {
-    const int lo = min(yc, clampi(y0 - 1, 0, h - 2));
-    const int hi = max(min(yc + 1, h - 1), clampi(y0 + 1, 0, h - 2) + 1);
-    in_shard = lo >= row0 && hi < row0 + p.h;
+  Window g{};
+  if constexpr (kRule == kTiled || kRule == kTiledRows) {
+    // the 4 bilinear taps are ring taps (dy, dx) = (qdy(k), qdx(k)), each
+    // counted where it resolves; the history length is the nearest corner's
+    // texel, resolved or not
+    // the read's image: the whole image (kTiled), the rows in memory, each
+    // pixel in its own tile (kTiledRows: tpuray's sharded stage)
+    g.lo = row0;
+    g.hi = row0 + p.h;
+    if (kRule == kTiledRows) {
+      ti = y / tl.ty;
+      tj = x / tl.tx;
+    }
+    g.y = y + row0;
+    g.x = x;
+    g.rp = clampi(y0, g.lo, g.hi - 1) - g.y;
+    g.cp = xc - x;
+    g.oy = tl.oy[ti * tl.ntx + tj];
+    g.ox = tl.ox[ti * tl.ntx + tj];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      bool sel;
+      int ty, tx;
+      const bool res = ring_tap<kRule, kWin>(in, p, tl, g, qdy(k), qdx(k), sel, ty, tx);
+      hls[k] = 0.f;
+      if (res) {
+        const HistRow t = fetch(in, ty - row0, tx, w);
+        hls[k] = t.hl;
+        if (tap_valid(y0 + qdy(k), x0 + qdx(k), h, p, z, fw_z, n, fw_n, t)) {
+          any_valid = true;
+          const float wv = wts[k];
+          sum_w = sum_w + wv;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[c] = acc[c] + wv * t.iv[c];
+          acc_m[0] = acc_m[0] + wv * t.m[0];
+          acc_m[1] = acc_m[1] + wv * t.m[1];
+        }
+      } else if (sel && ty >= g.lo && ty < g.hi && tx >= 0 && tx < w) {
+        hls[k] = in.prev_hist[(ty - row0) * w + tx];
+      }
+    }
+  } else {
+    // the 4 bilinear taps: one quad at the clamped base
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const HistRow t = fetch(in, local(min(yc + qdy(k), h - 1)), min(xc + qdx(k), w - 1), w);
+      hls[k] = t.hl;
+      const bool v = tap_valid(y0 + qdy(k), x0 + qdx(k), h, p, z, fw_z, n, fw_n, t);
+      any_valid = any_valid || v;
+      const float wv = v ? wts[k] : 0.f;
+      sum_w = sum_w + wv;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[c] = acc[c] + wv * t.iv[c];
+      acc_m[0] = acc_m[0] + wv * t.m[0];
+      acc_m[1] = acc_m[1] + wv * t.m[1];
+    }
+    // a window's pixel whose bilinear or rescue taps leave the rows in
+    // memory fails (the plain version's in_shard)
+    if (kWin) {
+      const int lo = min(yc, clampi(y0 - 1, 0, h - 2));
+      const int hi = max(min(yc + 1, h - 1), clampi(y0 + 1, 0, h - 2) + 1);
+      in_shard = lo >= row0 && hi < row0 + p.h;
+    }
   }
   const bool bilinear_ok = any_valid && (sum_w >= 0.01f) && in_shard;
   const float safe_w = maxp(sum_w, 1e-6f);
@@ -272,29 +395,68 @@ __device__ __forceinline__ Rep reproject_px(const Inputs& in, const Params& p, i
   prev_m[0] = bilinear_ok ? acc_m[0] / safe_w : 0.f;
   prev_m[1] = bilinear_ok ? acc_m[1] / safe_w : 0.f;
 
-  // 3x3 rescue (svgf_reproject.frag:111-141): 4 quads, bases clamped to
-  // [0, dim - 2]; only read where the bilinear taps failed
+  // 3x3 rescue (svgf_reproject.frag:111-141), only read where the bilinear
+  // taps failed
   bool rescue_ok = false;
   if (!bilinear_ok && in_shard) {
     float n_valid = 0.f, rs[4] = {0.f, 0.f, 0.f, 0.f}, rs_m[2] = {0.f, 0.f};
+    if constexpr (kRule == kTiled || kRule == kTiledRows) {
+      // the 9 taps around the clipped base, each where it resolves
+      for (int dy = -1; dy <= 1; ++dy) {
+        for (int dx = -1; dx <= 1; ++dx) {
+          bool sel;
+          int ty, tx;
+          if (!ring_tap<kRule, kWin>(in, p, tl, g, dy, dx, sel, ty, tx)) continue;
+          const HistRow t = fetch(in, ty - row0, tx, w);
+          if (!tap_valid(y0 + dy, x0 + dx, h, p, z, fw_z, n, fw_n, t)) continue;
+          n_valid = n_valid + 1.f;
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int yb = clampi(y0 + bdy(b), 0, h - 2);
-      const int xb = clampi(x0 + bdx(b), 0, w - 2);
+          for (int c = 0; c < 4; ++c) rs[c] = rs[c] + t.iv[c];
+          rs_m[0] = rs_m[0] + t.m[0];
+          rs_m[1] = rs_m[1] + t.m[1];
+        }
+      }
+    } else if constexpr (kRule == kFast) {
+      // tap (y0 + dy, x0 + dx) taken as the base tap of the pixel
+      // (y + dy, x + dx), edge clamped (shift2d); its bounds test is that
+      // pixel's
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int ty = yb + qdy(q), tx = xb + qdx(q);
-        bool in_window = abs(ty - y0) <= 1 && abs(tx - x0) <= 1;
-        // only the first quad owns taps with ty <= y0 and tx <= x0
-        if (b != 0) in_window = in_window && !(ty <= y0 && tx <= x0);
-        const HistRow t = fetch(in, local(ty), tx, w);
-        const bool v = in_window && tap_valid(ty, tx, h, p, z, fw_z, n, fw_n, t);
-        const float vf = v ? 1.f : 0.f;
-        n_valid = n_valid + vf;
+      for (int dy = -1; dy <= 1; ++dy) {
 #pragma unroll
-        for (int c = 0; c < 4; ++c) rs[c] = rs[c] + vf * t.iv[c];
-        rs_m[0] = rs_m[0] + vf * t.m[0];
-        rs_m[1] = rs_m[1] + vf * t.m[1];
+        for (int dx = -1; dx <= 1; ++dx) {
+          const Base bq = back_project<kWin>(in, p, clampi(x + dx, 0, w - 1),
+                                             clampi(y + dy, 0, p.h - 1));
+          const HistRow t = fetch(in, clampi(bq.y0, 0, h - 1), clampi(bq.x0, 0, w - 1), w);
+          const bool v = tap_valid(bq.y0, bq.x0, h, p, z, fw_z, n, fw_n, t);
+          const float vf = v ? 1.f : 0.f;
+          n_valid = n_valid + vf;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) rs[c] = rs[c] + vf * t.iv[c];
+          rs_m[0] = rs_m[0] + vf * t.m[0];
+          rs_m[1] = rs_m[1] + vf * t.m[1];
+        }
+      }
+    } else {
+      // 4 quads, bases clamped to [0, dim - 2]
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int yb = clampi(y0 + bdy(b), 0, h - 2);
+        const int xb = clampi(x0 + bdx(b), 0, w - 2);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int ty = yb + qdy(q), tx = xb + qdx(q);
+          bool in_window = abs(ty - y0) <= 1 && abs(tx - x0) <= 1;
+          // only the first quad owns taps with ty <= y0 and tx <= x0
+          if (b != 0) in_window = in_window && !(ty <= y0 && tx <= x0);
+          const HistRow t = fetch(in, local(ty), tx, w);
+          const bool v = in_window && tap_valid(ty, tx, h, p, z, fw_z, n, fw_n, t);
+          const float vf = v ? 1.f : 0.f;
+          n_valid = n_valid + vf;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) rs[c] = rs[c] + vf * t.iv[c];
+          rs_m[0] = rs_m[0] + vf * t.m[0];
+          rs_m[1] = rs_m[1] + vf * t.m[1];
+        }
       }
     }
     rescue_ok = n_valid > 0.f;
@@ -347,9 +509,9 @@ __device__ __forceinline__ float dist7(int d2) {
        : d2 == 10 ? 0x1.94c584p+1f : d2 == 13 ? 0x1.cd82b4p+1f : 0x1.0f876cp+2f;
 }
 
-template <int kSq, bool kWin>
+template <int kSq, bool kWin, int kRule>
 __global__ void __launch_bounds__(BW * BH, 3) reproject_variance(Inputs in, Outputs out,
-                                                                 Params p) {
+                                                                 Params p, Tiles tl) {
   __shared__ float4 s_il[TILE];  // rep_illum rgb, its luminance
   __shared__ float4 s_nz[TILE];  // normal, linear_z
   __shared__ float2 s_m[TILE];   // moments
@@ -360,11 +522,14 @@ __global__ void __launch_bounds__(BW * BH, 3) reproject_variance(Inputs in, Outp
   const bool in_img = x < w && y < h;
   const int i = y * w + x;
   const int c0 = (threadIdx.y + HR) * SW + threadIdx.x + HR;  // own tile point
+  // kTiled: the TPU kernel's tile holding the block, whose window every
+  // reprojection of the block reads, its halo's too
+  const int ti = kRule == kTiled ? by0 / tl.ty : 0, tj = kRule == kTiled ? bx0 / tl.tx : 0;
   float var, hl;  // what the fallback or its passthrough needs besides the tile
   bool needs;
   {
     // a thread past the ragged edge reprojects the clamped pixel: its tile point
-    const Rep r = reproject_px<kWin>(in, p, min(x, w - 1), min(y, h - 1));
+    const Rep r = reproject_px<kRule, kWin>(in, p, tl, min(x, w - 1), min(y, h - 1), ti, tj);
     if (in_img) {
 #pragma unroll
       for (int c = 0; c < 3; ++c) out.rep_illum[3 * i + c] = r.o[c];
@@ -392,8 +557,8 @@ __global__ void __launch_bounds__(BW * BH, 3) reproject_variance(Inputs in, Outp
   for (int k = threadIdx.y * BW + threadIdx.x; k < RING; k += BW * BH) {
     int ex, ey;
     ring_point(k, ex, ey);
-    const Rep q = reproject_px<kWin>(in, p, clampi(bx0 + ex - HR, 0, w - 1),
-                                     clampi(by0 + ey - HR, 0, h - 1));
+    const Rep q = reproject_px<kRule, kWin>(in, p, tl, clampi(bx0 + ex - HR, 0, w - 1),
+                                            clampi(by0 + ey - HR, 0, h - 1), ti, tj);
     const int e = ey * SW + ex;
     s_il[e] = make_float4(q.o[0], q.o[1], q.o[2], lum(q.o[0], q.o[1], q.o[2]));
     s_nz[e] = make_float4(q.n[0], q.n[1], q.n[2], q.z);
@@ -466,7 +631,8 @@ extern "C" int tpuray_reproject_variance(
     const float* prev_history_len, float* rep_illum, float* rep_variance, float* moments,
     float* history_len, float* var_illum, float* var_variance, int h, int w, int row0,
     int global_h, float depth_thr, float normal_thr, float history_cap, float alpha_min,
-    float sigma_n, int n_sq, float sigma_l, int quirks, cudaStream_t stream) {
+    float sigma_n, int n_sq, float sigma_l, int quirks, int rule, const int* tile_oy,
+    const int* tile_ox, int nty, int ntx, int ty, int tx, int span, cudaStream_t stream) {
   const Inputs in{color, emission, albedo, motion, normal, linear_z, fwidth_normal,
                   fwidth_z, prev_illum, prev_variance, prev_normal, prev_linear_z,
                   prev_moments, prev_history_len};
@@ -474,12 +640,35 @@ extern "C" int tpuray_reproject_variance(
   const Params p{h, w, row0, global_h, depth_thr, normal_thr, history_cap, alpha_min,
                  sigma_n, n_sq, sigma_l, quirks, static_cast<float>(1.0 / w),
                  static_cast<float>(1.0 / global_h)};
+  const Tiles tl{tile_oy, tile_ox, nty, ntx, ty, tx, span};
   const dim3 block(BW, BH);
   const dim3 grid((w + BW - 1) / BW, (h + BH - 1) / BH);
   constexpr int kS = denoise::kDefaultSquarings;
   const bool sq = n_sq == kS, win = row0 != 0 || global_h != h;
-  auto kernel = sq ? (win ? reproject_variance<kS, true> : reproject_variance<kS, false>)
-                   : (win ? reproject_variance<-1, true> : reproject_variance<-1, false>);
-  kernel<<<grid, block, 0, stream>>>(in, out, p);
+  // kTiled takes the whole image, in tiles that hold whole blocks (a block
+  // reads its tile's window); kTiledRows a row window; kFast no window (a
+  // row shard reads kTiledRows)
+  if ((rule == kTiled && (win || ty % BH || tx % BW)) || (rule == kFast && win) ||
+      rule < kExact || rule > kFast || (rule != kExact && rule != kFast && !tile_oy))
+    return static_cast<int>(cudaErrorInvalidValue);
+  decltype(&reproject_variance<kS, false, kExact>) kernel;
+  switch (rule) {
+    case kTiled:
+      kernel = sq ? reproject_variance<kS, false, kTiled> : reproject_variance<-1, false, kTiled>;
+      break;
+    case kTiledRows:
+      kernel = sq ? reproject_variance<kS, true, kTiledRows>
+                  : reproject_variance<-1, true, kTiledRows>;
+      break;
+    case kFast:
+      kernel = sq ? reproject_variance<kS, false, kFast> : reproject_variance<-1, false, kFast>;
+      break;
+    default:
+      kernel = sq ? (win ? reproject_variance<kS, true, kExact>
+                         : reproject_variance<kS, false, kExact>)
+                  : (win ? reproject_variance<-1, true, kExact>
+                         : reproject_variance<-1, false, kExact>);
+  }
+  kernel<<<grid, block, 0, stream>>>(in, out, p, tl);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,6 +15,12 @@ runs K5; on the card it runs K4 at zero motion, the specialisation's
 meaning (the Renderer and the CLI pick no static branch on the card at
 all: render/renderer.py:still_camera).
 
+The moving camera's history read is the config's (denoise/reproject.py:
+gather_mode: "auto" and "exact" the exact read, "tiled" the tile-windowed
+read, fast_reproject the shifted rescue), in reproject or K4 and, as
+tpuray does, in TAA under "tiled" (tpuray/denoise/svgf.py:109-112). One
+pipeline serves all three.
+
 svgf_pipeline is also the sharded frame's denoiser (dist/frame.py): its
 `rows` say which rows of the image the stages see. The default is the
 whole image; a row shard of a frame split across ranks extends each
@@ -22,9 +28,14 @@ stage's inputs with its neighbours' rows, passes the stages (plain or
 kernel) their global row window and crops the result, so one stage
 sequence serves both. K4 fuses reproject and the variance fallback, so on
 a shard it reprojects the 3 rows past each edge that the fallback reads
-itself, on rows extended by rows.halo + 3, where the plain stages take
-those rows from the neighbour (ROADMAP.md §3: the two differ only where
-the history taps travel farther than the halo).
+itself, where the plain stages take those rows from the neighbour. Under
+the exact read K4 runs on rows extended by rows.halo + 3 (its taps reach
+the halo past those rows; ROADMAP.md §3: the two differ only where the
+history taps travel farther than the halo); under the tiled read on the
+plain stage's rows extended by rows.halo, whose tiles the read takes
+(ROADMAP.md §3: those 3 rows can resolve differently in the neighbour's
+tiles). A shard reads "tiled" under fast_reproject (reproject.
+history_read), in TAA too.
 """
 from __future__ import annotations
 
@@ -34,7 +45,7 @@ import torch
 
 from tpuray_torch.denoise.atrous import atrous_iteration
 from tpuray_torch.denoise.modulate import modulate
-from tpuray_torch.denoise.reproject import ReprojectOutput, reproject
+from tpuray_torch.denoise.reproject import ReprojectOutput, history_read, reproject
 from tpuray_torch.denoise.taa import taa
 from tpuray_torch.denoise.variance import estimate_variance
 from tpuray_torch.integrator.gbuffer import GBuffer
@@ -115,13 +126,18 @@ def svgf_pipeline(color: Tensor, emission: Tensor, albedo: Tensor, gbuf: GBuffer
     The frame's inputs and the history are extended once, by the widest
     reach of any stage; each stage then narrows them to its own. The
     stages' outputs are extended again before the next stage reads them:
-    K4 reads rows.halo + 3 rows (the reprojection and the fallback on its
-    output); the plain reproject rows.halo and the variance fallback 3; a-trous
+    K4 reads rows.halo + 3 rows under the exact read (the reprojection and
+    the fallback on its output), rows.halo under the tiled read; the plain
+    reproject rows.halo and the variance fallback 3; a-trous
     iteration i 2 * 2^i + 1 (its taps and the variance pre-blur), TAA
     rows.halo or at least 2."""
     kernels = cfg.pallas_denoise
     k = rows.halo
-    kr = k + 3 if kernels else k
+    # the tiled read never leaves the plain stage's rows, whose tiles it
+    # takes: K4 reads those rows (the fallback's 3 past the shard lie
+    # inside the halo)
+    tiled = history_read(cfg, rows.window(k)) == "tiled"
+    kr = k + 3 if kernels and not tiled else k
     g = max(kr, 2 * (1 << max(cfg.num_atrous_iterations - 1, 0)) + 1)
     ext = rows.extend(g, *(x.contiguous() for x in (
         color, emission, albedo, gbuf.velocity, gbuf.normal, gbuf.linear_z,
@@ -174,7 +190,7 @@ def svgf_pipeline(color: Tensor, emission: Tensor, albedo: Tensor, gbuf: GBuffer
     (mod_e,) = rows.extend(kt, mod)
     taa_out = rows.crop(taa(mod_e, at(ext[-1], kt), at(ext[3], kt), at(e_z, kt),
                             state.frame_idx, static_camera=static_camera,
-                            row_window=rows.window(kt)), kt)
+                            tiled_fetch=tiled, row_window=rows.window(kt)), kt)
     return SVGFOutput(
         reprojected=rep.illum, reprojected_var=rep.variance,
         variance_illum=var_illum, variance_var=var_variance,

@@ -5,16 +5,21 @@ shaders/taa.frag).
 tonemap for clipping stability, mu +/- gamma*sigma variance clipping of the
 history toward the current 3x3 neighbourhood, velocity-scaled blend.
 
-The moving-camera history fetch is the JAX package's off-TPU one, a
-bilinear read of a clamped 2x2 quad (gather_tables.bilinear_fetch_packed):
-at u = 0 it blends texels 0 and 1 half and half, unlike GL's clamp. The
-TPU's tile-windowed fetch is not ported.
+The moving-camera history fetch is, by default, the JAX package's off-TPU
+one, a bilinear read of a clamped 2x2 quad (gather_tables.
+bilinear_fetch_packed): at u = 0 it blends texels 0 and 1 half and half,
+unlike GL's clamp. tiled_fetch=True reads the 4 bilinear taps through the
+tile-windowed read (denoise/tile_gather.py) as tpuray does under
+reproject_gather="tiled" and in its sharded frame: a tap that does not
+resolve drops out with its weight, and a pixel with none rejects its
+history.
 """
 from __future__ import annotations
 
 import torch
 
 from tpuray_torch.denoise.common import shift2d
+from tpuray_torch.denoise.tile_gather import QUAD, tiled_taps
 
 Tensor = torch.Tensor
 
@@ -115,14 +120,46 @@ def bilinear_fetch_clamped(img: Tensor, u: Tensor, v: Tensor,
         + (c01 * (1 - fx) + c11 * fx) * fy, in_shard
 
 
+def history_fetch_tiled(prev_color: Tensor, vel: Tensor,
+                        row_window: tuple[int, int] | None = None
+                        ) -> tuple[Tensor, Tensor]:
+    """The bilinear history fetch through the tile-windowed read
+    (tpuray/denoise/taa.py:_history_fetch_tiled) -> (value, hist_ok): the
+    resolved taps' weights renormalised, hist_ok where any resolved. Under
+    a row window the tiles start at the shard's first row and a tap past
+    the shard does not resolve."""
+    h, w = prev_color.shape[:2]
+    row0, gh = row_window if row_window is not None else (0, h)
+    dev = prev_color.device
+    yy, xx = torch.meshgrid(torch.arange(h, device=dev) + row0,
+                            torch.arange(w, device=dev), indexing="ij")
+    x = xx.to(torch.float32) + 0.5 - vel[..., 0] * w - 0.5
+    y = yy.to(torch.float32) + 0.5 - vel[..., 1] * gh - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    taps, res = tiled_taps(prev_color, y0.to(torch.int64) - row0, x0.to(torch.int64), QUAD)
+    weights = {(0, 0): (1 - fx) * (1 - fy), (0, 1): fx * (1 - fy),
+               (1, 0): (1 - fx) * fy, (1, 1): fx * fy}
+    acc = torch.zeros_like(prev_color)
+    wsum = torch.zeros((h, w, 1), dtype=torch.float32, device=dev)
+    for e, wt in weights.items():
+        wv = torch.where(res[e][..., None], wt, 0.0)
+        acc = acc + wv * taps[e]
+        wsum = wsum + wv
+    return acc / torch.clamp_min(wsum, 1e-6), wsum[..., 0] > 1e-6
+
+
 def taa(cur_color: Tensor, prev_color: Tensor, velocity: Tensor,
         linear_z: Tensor, frame: int, static_camera: bool = False,
+        tiled_fetch: bool = False,
         row_window: tuple[int, int] | None = None) -> Tensor:
     """row_window=(row0, global_h): the inputs are a halo-extended row shard
     (dist/frame.py). The moving camera's history uv is clamped to the
     global image and read from the shard; a pixel whose history taps lie
     outside the shard rejects its history (blend 1), as tpuray's hist_ok
-    does."""
+    does. tiled_fetch: the tile-windowed fetch (history_fetch_tiled)."""
     h, w = linear_z.shape
     dev = linear_z.device
     sky = linear_z == 1.0
@@ -132,6 +169,9 @@ def taa(cur_color: Tensor, prev_color: Tensor, velocity: Tensor,
         # motion == 0: the history is the same pixel
         vel = torch.zeros((h, w, 2), dtype=torch.float32, device=dev)
         prev = prev_color
+    elif tiled_fetch:
+        vel = closest_velocity(velocity, linear_z)
+        prev, hist_ok = history_fetch_tiled(prev_color, vel, row_window)
     else:
         vel = closest_velocity(velocity, linear_z)
         row0, gh = row_window if row_window is not None else (0, h)

@@ -48,23 +48,34 @@ def estimate_variance(illum: Tensor, variance: Tensor, moments: Tensor,
     shard; the bounds masks use global rows (dist/frame.py)."""
     shape = illum.shape[:2]
     dev = illum.device
+
+    def tap(dy, dx):
+        return (shift2d(illum, dy, dx), shift2d(moments, dy, dx), shift2d(linear_z, dy, dx),
+                shift2d(normal, dy, dx), inside_mask(shape, dy, dx, dev, row_window))
+
+    return fallback(illum, variance, moments, history_len, normal, linear_z, fwidth_z,
+                    cfg, tap)
+
+
+def fallback(illum: Tensor, variance: Tensor, moments: Tensor, history_len: Tensor,
+             normal: Tensor, linear_z: Tensor, fwidth_z: Tensor, cfg: RenderConfig,
+             tap) -> VarianceOutput:
+    """The 7x7 fallback of each pixel, elementwise over any leading shape:
+    tap(dy, dx) -> (illum, moments, linear_z, normal, inside) of the pixel
+    (y + dy, x + dx) (K4's plain version reads them from its tiles)."""
     sky = linear_z == 1.0
     needs = (history_len < 4.0) & ~sky
 
     l_center = luminance(illum)
     phi_depth = torch.clamp_min(fwidth_z, 1e-8) * 3.0
 
-    sum_w = torch.zeros(shape, dtype=torch.float32, device=dev)
+    sum_w = torch.zeros_like(linear_z)
     sum_illum = torch.zeros_like(illum)
     sum_mom = torch.zeros_like(moments)
     radius = 3
     for dy in range(-radius, radius + 1):
         for dx in range(-radius, radius + 1):
-            inside = inside_mask(shape, dy, dx, dev, row_window)
-            il_p = shift2d(illum, dy, dx)
-            mo_p = shift2d(moments, dy, dx)
-            z_p = shift2d(linear_z, dy, dx)
-            n_p = shift2d(normal, dy, dx)
+            il_p, mo_p, z_p, n_p, inside = tap(dy, dx)
             dist = float((dx * dx + dy * dy) ** 0.5)
             wgt = edge_stopping_weight(
                 linear_z, z_p, phi_depth * dist, normal, n_p, cfg.sigma_n,

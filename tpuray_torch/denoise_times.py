@@ -11,7 +11,8 @@ atrous.py:chain over atrous_step, or atrous_chain in a tree that predates
 the row window). The inputs: the denoiser's inputs of the 5th
 moving frame of the test scene (20,482 triangles) under the default view,
 at 800x800 and at 1920x1080, recorded as chip_smoke.py's phase 3 records
-them. Times: K4 (one call), and K5's chain on K4's output at 1 to 5
+them. Times: K4 (one call; also under reproject_gather="tiled" and
+fast_reproject=True where the tree has those reads), and K5's chain on K4's output at 1 to 5
 iterations, so that each step's increment shows; each the mean device time
 of 20 calls between two CUDA events, after 3 warm-ups, behind a spin kernel
 that keeps the host's launch overhead out (this checkout's
@@ -147,6 +148,14 @@ def main() -> None:
         print(f"{w}x{h} K4 inputs (frame 5): {fallback_shares(k4_in, k4.history_len)}",
               flush=True)
         timed(f"K4 {w}x{h}", lambda: kr.reproject_variance_fused(cfg, **k4_in))
+        for read, kw in (("tiled", dict(reproject_gather="tiled")),
+                         ("fast", dict(fast_reproject=True))):
+            rcfg = dataclasses.replace(cfg, **kw)
+            try:
+                kr.reproject_variance_fused(rcfg, **k4_in)
+            except NotImplementedError:  # a tree that predates the read
+                continue
+            timed(f"K4 {read} {w}x{h}", lambda: kr.reproject_variance_fused(rcfg, **k4_in))
         chain_in = (k4.var_illum, k4.var_variance, k4_in["normal"], k4_in["linear_z"],
                     k4_in["fwidth_z"])
         chain_ms = chain_times(chain_in, cfg)

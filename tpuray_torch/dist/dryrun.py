@@ -94,7 +94,7 @@ def frames_sharded(scene, cfg, mesh, rotations, halo, static_last=False):
     return finals, pts, gather_state(state, mesh)
 
 
-CHECK_PARTS = ("tiled", "frames", "train")
+CHECK_PARTS = ("tiled", "frames", "tiled_read", "train")
 # the denoisers of the "frames" part: the key prefix -> cfg.pallas_denoise
 DENOISERS = {"kernels": True, "plain": False}
 
@@ -102,7 +102,9 @@ DENOISERS = {"kernels": True, "plain": False}
 def check_job(mesh, out: str | None, parts=CHECK_PARTS) -> None:
     """The comparisons the tests make, at CHECK_SIZE: render_tiled
     ("tiled"), moving, still and compacted sharded frames under each of
-    DENOISERS, its keys prefixed with the denoiser's ("frames"), and one
+    DENOISERS, its keys prefixed with the denoiser's ("frames"), the moving
+    frames under reproject_gather="tiled", prefixed with the denoiser's and
+    "tiled_read" ("tiled_read"), and one
     sharded SGD step ("train": loss, gradients, parameters, and whether
     every rank holds the same parameters). Rank 0 writes them to `out`."""
     from tpuray_torch.dist.sharding import gather_rows, render_tiled
@@ -138,6 +140,14 @@ def check_job(mesh, out: str | None, parts=CHECK_PARTS) -> None:
                 CHECK_ROTATIONS, CHECK_HALO)
             for i, f in enumerate(finals):
                 res[f"{den}_compact_final_{i}"] = f
+
+    for den, pallas in DENOISERS.items() if "tiled_read" in parts else ():
+        dcfg = dataclasses.replace(cfg, pallas_denoise=pallas, reproject_gather="tiled")
+        with torch.no_grad():
+            finals, _, state = frames_sharded(scene, dcfg, mesh, CHECK_ROTATIONS, CHECK_HALO)
+        for i, f in enumerate(finals):
+            res[f"{den}_tiled_read_moving_final_{i}"] = f
+        res[f"{den}_tiled_read_moving_state_history_len"] = state.history_len
 
     if "train" in parts:
         _check_train(mesh, scene, cfg, cam, res)

@@ -23,15 +23,26 @@ denoisers differ only where the taps travel farther than the halo
 (ROADMAP.md §3). `halo` also caps the a-trous exchange, so it must be
 >= 2 * the largest dilation step.
 
-tpuray's sharded frame reads the moving camera's history through the
-tile-windowed fetch (denoise/tile_gather.py), which drops taps at motion
-discontinuities and at the border. The port keeps its exact read, so its
-sharded frame equals its single-device frame (render/renderer.py:
-render_frame under the same config) bit for bit at any world size
-wherever the motion stays inside the halo. Under cfg.pallas_denoise (the
-default) each rank runs K4 once on its rows extended by halo + 3 and K5
-once per a-trous iteration, a halo exchanged before each; otherwise the
-plain stages, as tpuray's sharded frame runs XLA's stencils.
+The moving camera's history read follows the config
+(denoise/reproject.py:history_read). Under reproject_gather="tiled" it is
+tpuray's sharded read: the tile-windowed fetch (denoise/tile_gather.py) on
+each stage's extended rows, in reproject and in TAA, as
+tpuray/dist/frame.py:150-205 runs it; fast_reproject reads the same on a
+shard (tpuray's sharded stage has no shifted rescue). Under "auto" and
+"exact" the port keeps its exact read, where tpuray's sharded frame reads
+tile-windowed whatever the config (ROADMAP.md §3: a known divergence of
+"auto"); so the exact read's sharded frame equals the port's single-device
+frame (render/renderer.py:render_frame under the same config) bit for bit
+at any world size wherever the motion stays inside the halo. Under
+cfg.pallas_denoise (the default) each rank runs K4 once on its rows
+extended by halo + 3 and K5 once per a-trous iteration, a halo exchanged
+before each; otherwise the plain stages, as tpuray's sharded frame runs
+XLA's stencils. Under the tiled read K4 runs on the rows extended by the
+halo alone, in their tiles, as the plain reproject does; it reprojects
+the 3 rows past the shard that its fallback reads in its tiles, where the
+neighbour reads them in its own: the kernel denoiser's sharded frame can
+differ from the plain stages' in the fallback of the pixels within 3 rows
+of a shard's edge (ROADMAP.md §3).
 
 Primary rays are row-major per shard with global pixel coordinates, so the
 RNG streams are the single-device frame's. Under compaction each rank ranks

@@ -41,7 +41,7 @@ _SIGNATURES = {
                              _P],
     "tpuray_trace_multi": [_P, _P, _P, _I, _P] + [_P] * 12 + [_I, _I, _I, _P],
     "tpuray_reproject_variance": [_P] * 20 + [_I, _I, _I, _I, _F, _F, _F, _F, _F,
-                                              _I, _F, _I, _P],
+                                              _I, _F, _I, _I, _P, _P] + [_I] * 5 + [_P],
     "tpuray_atrous_step": [_P] * 7 + [_I, _I, _I, _I, _I, _F, _I, _F, _I, _P],
     "tpuray_onehot_gather": [_P, _P, _P, _I, _I, _I, _P],
 }

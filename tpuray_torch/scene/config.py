@@ -78,10 +78,12 @@ class RenderConfig:
     pallas_denoise: bool = True
 
     # moving-camera history-read strategy (denoise/reproject.py): "auto"
-    # and "exact" are the per-pixel exact read on every device. The JAX
-    # package's TPU-only reads, "tiled" (the tile-windowed fetch) and
-    # fast_reproject=True (static shifts of one quad gather), are not
-    # ported and raise NotImplementedError.
+    # and "exact" are the per-pixel exact read on every device (the JAX
+    # package's "auto" takes "tiled" on its TPU, for the TPU's gather cost);
+    # "tiled" the tile-windowed read (denoise/tile_gather.py), which drops
+    # taps at motion discontinuities and the border, in reproject or K4 and
+    # in TAA; fast_reproject=True the exact bilinear taps with a rescue of
+    # static shifts of the base tap.
     reproject_gather: str = "auto"
     fast_reproject: bool = False
 
