@@ -1,7 +1,9 @@
 """The port's command line (tpuray_torch/cli/main.py) on the CPU.
 
 render, animate, train and view take tpuray's options with tpuray's
-defaults, plus --device (cuda by default). A render writes a PNG and a
+defaults, plus --device (cuda by default) and render's --trace DIR, which
+writes a Chrome trace of the frames holding the program's spans, and the
+frames' counters. A render writes a PNG and a
 FrameState checkpoint that --resume continues from: 3 frames, then 2
 resumed, save the same state as 5 frames in one run. render --elastic runs
 the supervised loop (utils/elastic.py): its checkpoint equals the plain
@@ -46,14 +48,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _parsed(module, monkeypatch, argv):
-    """The argparse namespace main() hands to the subcommand."""
+    """The argparse namespace main() hands to the subcommand, but the
+    port's own options (--device, render's --trace)."""
     seen = {}
     for fs in (filesystem, jfs):
         monkeypatch.setattr(fs, "_extra_roots", [])
     for name in ("cmd_render", "cmd_animate", "cmd_train", "cmd_view"):
         monkeypatch.setattr(module, name, lambda args: seen.update(vars(args)) or 0)
     assert module.main(argv) == 0
-    return {k: v for k, v in seen.items() if k not in ("fn", "device")}
+    return {k: v for k, v in seen.items() if k not in ("fn", "device", "trace")}
 
 
 @pytest.mark.parametrize("argv", [
@@ -89,6 +92,27 @@ def test_render_writes_png_and_resumes(tmp_path):
     for f in ("illum_hist", "moments", "history_len", "accum_color", "taa_color"):
         assert torch.equal(getattr(resumed, f), getattr(straight, f)), f
     assert float(resumed.history_len.max()) == 5.0
+
+
+def test_render_trace_writes_spans(tmp_path):
+    trace_dir = tmp_path / "traces"
+    assert cli.main(["render", "--device", "cpu", "--size", "16", "--frames", "2",
+                     "--out", str(tmp_path / "t.png"), "--trace", str(trace_dir)]) == 0
+    (path,) = trace_dir.glob("trace_*.json")
+    names = {e.get("name") for e in json.loads(path.read_text())["traceEvents"]}
+    assert {"tpuray.frame", "tpuray.trace_paths", "tpuray.svgf", "tpuray.taa"} <= names
+    records = json.loads((trace_dir / "frame_records.json").read_text())
+    assert [r["frame_idx"] for r in records] == [0, 1]
+    assert all(r["lanes"] == 32 * 32 and r["shaded_lanes"] >= 512 for r in records)
+    assert cli.main(["render", "--device", "cpu", "--size", "16", "--frames", "1",
+                     "--out", str(tmp_path / "u.png")]) == 0
+    assert len(list(trace_dir.glob("trace_*.json"))) == 1
+    elastic = tmp_path / "elastic"
+    assert cli.main(["render", "--device", "cpu", "--size", "16", "--frames", "1",
+                     "--elastic", str(tmp_path / "ck.npz"), "--out", str(tmp_path / "e.png"),
+                     "--trace", str(elastic)]) == 0
+    (record,) = json.loads((elastic / "frame_records.json").read_text())
+    assert record["frame_idx"] == 0 and record["lanes"] == 32 * 32
 
 
 def test_render_dump_all_views(tmp_path):

@@ -811,6 +811,42 @@ def test_lagged_coverage_copy(cuda_scene):
     assert lag.read() == float(x.cpu())
 
 
+def test_spans_stay_on_the_host(cuda_scene):
+    """A compacted frame's spans (utils/metrics.py) in a traced session as
+    the benchmark takes it (portbench/traceread.py: padded, rerun while a
+    kernel record was lost): each a host op, none among the device
+    operations, which are the same kernels as the frame's with the spans
+    switched off."""
+    from portbench import traceread
+    from tpuray_torch.utils import metrics
+    scene, _ = cuda_scene
+    cfg = RenderConfig(width=128, height=128, compact_frac=0.5, compact_auto=False)
+    r = Renderer(scene, cfg)
+    cam = OrbitCamera(width=128, height=128)
+    r.step(cam.snapshot("cuda"))
+
+    def traced():
+        prof, _, _ = traceread.profiled(lambda: r.step(cam.snapshot("cuda")))
+        tr = traceread.Trace.of(prof)
+        return [n for n, _, _ in tr.device_ops], {n for n, _, _ in tr.host_ops}
+
+    dev, host = traced()
+    assert not [n for n in dev if n.startswith("tpuray.")]
+    assert {"tpuray.frame", "tpuray.trace_paths", "tpuray.wait.hit_count", "tpuray.svgf",
+            "tpuray.taa"} <= host
+    n, budget = 128 * 128, _compact_budget(128 * 128, cfg)
+    rec = metrics.frame_records()[-1]
+    assert rec["lanes"] == n and rec["shaded_lanes"] == budget + (n if rec["residual"] else 0)
+    real = metrics._profiling
+    metrics._profiling = lambda: False
+    try:
+        dev_off, host_off = traced()
+    finally:
+        metrics._profiling = real
+    assert not [n for n in host_off if n.startswith("tpuray.")]
+    assert sorted(dev) == sorted(dev_off)
+
+
 # ---- distribution: one NCCL rank on the card (NCCL puts one rank on a card)
 
 

@@ -5,8 +5,8 @@
   same leaf order: dict keys sorted, dataclass fields in order); the port's
   loaded leaves are on the device of the leaves they replace and require
   grad where those did; a file of another tree is refused.
-- StageTimer (utils/metrics.py) sums each stage's wall time;
-  profile_trace writes a Chrome trace that names the ops run inside it.
+- profile_trace (utils/metrics.py) writes a Chrome trace that names the
+  ops and the program's spans run inside it.
 - build_env_cache (sampling/envmap.py, float32 on the image's device):
   at 64 texels wide within tests/test_envmap.py's atol 2e-5 of
   build_env_cache_jnp and of env_cache_py, its indices equal to
@@ -19,7 +19,6 @@
 """
 import dataclasses
 import json
-import time
 
 import numpy as np
 import pytest
@@ -36,7 +35,7 @@ from tpuray_torch.scene import host
 from tpuray_torch.scene.procedural import make_test_scene
 from tpuray_torch.train import optimize
 from tpuray_torch.utils import checkpoint
-from tpuray_torch.utils.metrics import StageTimer, profile_trace
+from tpuray_torch.utils.metrics import FRAME, profile_trace, span
 
 torch.set_num_threads(2)
 
@@ -110,27 +109,16 @@ def test_pytree_leaf_order_and_refusals(tmp_path):
         checkpoint.load_pytree(path, {"b": (torch.ones(3), np.zeros(3)), "a": [torch.ones(1)]})
 
 
-def test_stage_timer():
-    timer = StageTimer()
-    x = torch.ones(4)
-    for _ in range(2):
-        with timer.time("sleep", x):
-            time.sleep(0.02)
-    with timer.time("none"):
-        pass
-    assert set(timer.stages) == {"sleep", "none"}
-    assert 0.04 <= timer.stages["sleep"] < 1.0
-    assert json.loads(timer.summary())["sleep"] >= 40.0
-
-
 def test_profile_trace(tmp_path):
     log_dir = tmp_path / "trace"
     with profile_trace(str(log_dir)):
-        torch.matmul(torch.ones(8, 8), torch.ones(8, 8))
+        with span(FRAME):
+            torch.matmul(torch.ones(8, 8), torch.ones(8, 8))
     files = list(log_dir.glob("*.json"))
     assert len(files) == 1
     events = json.loads(files[0].read_text())["traceEvents"]
     assert any("matmul" in e.get("name", "") for e in events)
+    assert any(e.get("name") == FRAME for e in events)
 
 
 @pytest.mark.parametrize("width", [64, 512])

@@ -11,6 +11,7 @@ Examples:
   python -m tpuray_torch.cli.main render --frames 8 --out out.png
   python -m tpuray_torch.cli.main render --scene reference --asset-root DIR
   python -m tpuray_torch.cli.main render --elastic ck.npz --checkpoint-every 4
+  python -m tpuray_torch.cli.main render --frames 16 --trace traces/
   python -m tpuray_torch.cli.main animate --frames 24 --every 4
   python -m tpuray_torch.cli.main train --steps 20 --out-prefix fit
   python -m tpuray_torch.cli.main view --port 8008
@@ -19,6 +20,9 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
+import os
 import sys
 import time
 
@@ -66,7 +70,7 @@ def cmd_render(args) -> int:
     from tpuray_torch.render.renderer import Renderer
     from tpuray_torch.scene.camera import OrbitCamera
     from tpuray_torch.scene.config import DebugView
-    from tpuray_torch.utils.metrics import FrameMetrics
+    from tpuray_torch.utils.metrics import FrameMetrics, frame_records, profile_trace
 
     cfg = _config(args, max_tracing_depth=args.depth,
                   reference_quirks=args.reference_quirks)
@@ -79,12 +83,19 @@ def cmd_render(args) -> int:
         r.restore(load_frame_state(args.resume, r.device))
 
     metrics = FrameMetrics(cfg.width, cfg.height, cfg.max_tracing_depth)
-    if args.elastic:
-        _render_elastic(r, cam.snapshot(), args, metrics)
-    else:
-        for _ in range(args.frames):
-            _frame(r, cam.snapshot(), metrics)
+    with profile_trace(args.trace) if args.trace else contextlib.nullcontext():
+        if args.elastic:
+            _render_elastic(r, cam.snapshot(), args, metrics)
+        else:
+            for _ in range(args.frames):
+                _frame(r, cam.snapshot(), metrics)
     print(metrics.summary(), file=sys.stderr)
+    if args.trace:
+        path = os.path.join(args.trace, "frame_records.json")
+        with open(path, "w") as f:
+            json.dump(frame_records()[-args.frames:], f)
+        print(f"wrote a Chrome trace of the frames and {path} into {args.trace}",
+              file=sys.stderr)
 
     write_png(args.out, r.display_image(DebugView[_VIEWS[args.view]]))
     print(f"wrote {args.out} ({cfg.width}x{cfg.height}, {args.frames} frames, "
@@ -111,6 +122,7 @@ def _render_elastic(r, snap, args, metrics) -> None:
 
     from tpuray_torch.render.renderer import render_frame, still_camera
     from tpuray_torch.utils.elastic import run_elastic
+    from tpuray_torch.utils.metrics import FRAME, span
 
     view_proj = snap.view_proj.numpy()
     camera = snap.to(r.device)
@@ -119,11 +131,12 @@ def _render_elastic(r, snap, args, metrics) -> None:
     @torch.no_grad()
     def frame_fn(state, frame):
         t0 = time.perf_counter()
-        static = still_camera(r.device, state.frame_idx, view_proj,
-                              state.prev_view_proj.cpu().numpy())
-        state, out = render_frame(r.scene, camera, state, r.cfg, r.cfg.height,
-                                  r.cfg.width, tracer=r.tracer, tables=r.tables,
-                                  pk=r.pk, static_camera=static)
+        with span(FRAME):
+            static = still_camera(r.device, state.frame_idx, view_proj,
+                                  state.prev_view_proj.cpu().numpy())
+            state, out = render_frame(r.scene, camera, state, r.cfg, r.cfg.height,
+                                      r.cfg.width, tracer=r.tracer, tables=r.tables,
+                                      pk=r.pk, static_camera=static)
         out.final[:1, :1].cpu()  # the frame's end, as _frame times it
         r.last_outputs = out
         if frame not in seen:
@@ -253,6 +266,10 @@ def main(argv=None) -> int:
     pr.add_argument("--checkpoint-every", type=int, default=8)
     pr.add_argument("--reference-quirks", action="store_true")
     pr.add_argument("--dump-all-views", action="store_true")
+    pr.add_argument("--trace", default=None, metavar="DIR",
+                    help="write a Chrome trace of the frames (torch.profiler, with the "
+                         "program's tpuray.* spans) and their counters "
+                         "(frame_records.json) into DIR")
     device_option(pr)
     pr.set_defaults(fn=cmd_render)
 

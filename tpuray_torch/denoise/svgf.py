@@ -53,6 +53,7 @@ from tpuray_torch.kernels import atrous as katrous
 from tpuray_torch.kernels import reproject as kreproject
 from tpuray_torch.render.frame_state import FrameState
 from tpuray_torch.scene.config import RenderConfig
+from tpuray_torch.utils.metrics import span
 
 Tensor = torch.Tensor
 
@@ -131,70 +132,73 @@ def svgf_pipeline(color: Tensor, emission: Tensor, albedo: Tensor, gbuf: GBuffer
     reproject rows.halo and the variance fallback 3; a-trous
     iteration i 2 * 2^i + 1 (its taps and the variance pre-blur), TAA
     rows.halo or at least 2."""
-    kernels = cfg.pallas_denoise
-    k = rows.halo
-    # the tiled read never leaves the plain stage's rows, whose tiles it
-    # takes: K4 reads those rows (the fallback's 3 past the shard lie
-    # inside the halo)
-    tiled = history_read(cfg, rows.window(k)) == "tiled"
-    kr = k + 3 if kernels and not tiled else k
-    g = max(kr, 2 * (1 << max(cfg.num_atrous_iterations - 1, 0)) + 1)
-    ext = rows.extend(g, *(x.contiguous() for x in (
-        color, emission, albedo, gbuf.velocity, gbuf.normal, gbuf.linear_z,
-        gbuf.fwidth_normal, gbuf.fwidth_z)),
-        *(getattr(state, f).contiguous() for f in _HISTORY))
-    e_normal, e_z, e_fwz = ext[4], ext[5], ext[7]
+    with span("tpuray.svgf"):
+        kernels = cfg.pallas_denoise
+        k = rows.halo
+        # the tiled read never leaves the plain stage's rows, whose tiles it
+        # takes: K4 reads those rows (the fallback's 3 past the shard lie
+        # inside the halo)
+        tiled = history_read(cfg, rows.window(k)) == "tiled"
+        kr = k + 3 if kernels and not tiled else k
+        g = max(kr, 2 * (1 << max(cfg.num_atrous_iterations - 1, 0)) + 1)
+        ext = rows.extend(g, *(x.contiguous() for x in (
+            color, emission, albedo, gbuf.velocity, gbuf.normal, gbuf.linear_z,
+            gbuf.fwidth_normal, gbuf.fwidth_z)),
+            *(getattr(state, f).contiguous() for f in _HISTORY))
+        e_normal, e_z, e_fwz = ext[4], ext[5], ext[7]
 
-    def at(x, kk):
-        return rows.narrow(x, g, kk)
+        def at(x, kk):
+            return rows.narrow(x, g, kk)
 
-    if kernels:
-        inputs = dict(zip(kreproject.INPUT_NAMES, (at(x, kr) for x in ext[:-1])))
-        if static_camera and not color.is_cuda:
-            fused = kreproject.reproject_variance_plain(
-                cfg, static_camera=True, row_window=rows.window(kr), **inputs)
+        if kernels:
+            inputs = dict(zip(kreproject.INPUT_NAMES, (at(x, kr) for x in ext[:-1])))
+            if static_camera and not color.is_cuda:
+                fused = kreproject.reproject_variance_plain(
+                    cfg, static_camera=True, row_window=rows.window(kr), **inputs)
+            else:
+                if static_camera:  # the card has no static K4: K4 at motion 0
+                    inputs["motion"] = torch.zeros_like(inputs["motion"])
+                fused = kreproject.reproject_variance_fused(
+                    cfg, row_window=rows.window(kr), **inputs)
+            fused = type(fused)(*(rows.crop(x, kr) for x in fused))
+            rep = ReprojectOutput(illum=fused.rep_illum, variance=fused.rep_variance,
+                                  moments=fused.moments, history_len=fused.history_len)
+            var_illum, var_variance = fused.var_illum, fused.var_variance
+            iteration = katrous.atrous_step
         else:
-            if static_camera:  # the card has no static K4: K4 at motion 0
-                inputs["motion"] = torch.zeros_like(inputs["motion"])
-            fused = kreproject.reproject_variance_fused(cfg, row_window=rows.window(kr),
-                                                        **inputs)
-        fused = type(fused)(*(rows.crop(x, kr) for x in fused))
-        rep = ReprojectOutput(illum=fused.rep_illum, variance=fused.rep_variance,
-                              moments=fused.moments, history_len=fused.history_len)
-        var_illum, var_variance = fused.var_illum, fused.var_variance
-        iteration = katrous.atrous_step
-    else:
-        rep = reproject(*(at(x, k) for x in ext[:-1]), cfg=cfg,
-                        static_camera=static_camera, row_window=rows.window(k))
-        rep = type(rep)(*(rows.crop(x, k) for x in rep))
-        kv = 3
-        var = estimate_variance(
-            *rows.extend(kv, rep.illum, rep.variance, rep.moments, rep.history_len),
-            at(e_normal, kv), at(e_z, kv), at(e_fwz, kv), cfg, row_window=rows.window(kv))
-        var_illum, var_variance = rows.crop(var.illum, kv), rows.crop(var.variance, kv)
-        iteration = atrous_iteration
+            rep = reproject(*(at(x, k) for x in ext[:-1]), cfg=cfg,
+                            static_camera=static_camera, row_window=rows.window(k))
+            rep = type(rep)(*(rows.crop(x, k) for x in rep))
+            kv = 3
+            var = estimate_variance(
+                *rows.extend(kv, rep.illum, rep.variance, rep.moments, rep.history_len),
+                at(e_normal, kv), at(e_z, kv), at(e_fwz, kv), cfg,
+                row_window=rows.window(kv))
+            var_illum = rows.crop(var.illum, kv)
+            var_variance = rows.crop(var.variance, kv)
+            iteration = atrous_iteration
 
-    illum, variance = history_tap, history_tap_var = var_illum, var_variance
-    for i in range(cfg.num_atrous_iterations):
-        step = 1 << i
-        ka = 2 * step + 1
-        il, va = iteration(
-            *rows.extend(ka, illum, variance), at(e_normal, ka), at(e_z, ka),
-            at(e_fwz, ka), step, cfg, row_window=rows.window(ka))
-        illum, variance = rows.crop(il, ka), rows.crop(va, ka)
-        if i == cfg.history_atrous_tap:
-            history_tap, history_tap_var = illum, variance
+        illum, variance = history_tap, history_tap_var = var_illum, var_variance
+        for i in range(cfg.num_atrous_iterations):
+            step = 1 << i
+            ka = 2 * step + 1
+            il, va = iteration(
+                *rows.extend(ka, illum, variance), at(e_normal, ka), at(e_z, ka),
+                at(e_fwz, ka), step, cfg, row_window=rows.window(ka))
+            illum, variance = rows.crop(il, ka), rows.crop(va, ka)
+            if i == cfg.history_atrous_tap:
+                history_tap, history_tap_var = illum, variance
 
-    mod = modulate(illum, albedo, emission, gbuf.linear_z)
-    kt = max(k, 2)
-    (mod_e,) = rows.extend(kt, mod)
-    taa_out = rows.crop(taa(mod_e, at(ext[-1], kt), at(ext[3], kt), at(e_z, kt),
-                            state.frame_idx, static_camera=static_camera,
-                            tiled_fetch=tiled, row_window=rows.window(kt)), kt)
-    return SVGFOutput(
-        reprojected=rep.illum, reprojected_var=rep.variance,
-        variance_illum=var_illum, variance_var=var_variance,
-        atrous=illum, atrous_var=variance,
-        history_tap=history_tap, history_tap_var=history_tap_var,
-        modulated=mod, taa=taa_out,
-        moments=rep.moments, history_len=rep.history_len)
+        mod = modulate(illum, albedo, emission, gbuf.linear_z)
+        kt = max(k, 2)
+        (mod_e,) = rows.extend(kt, mod)
+        taa_out = rows.crop(taa(mod_e, at(ext[-1], kt), at(ext[3], kt), at(e_z, kt),
+                                state.frame_idx, static_camera=static_camera,
+                                tiled_fetch=tiled, row_window=rows.window(kt)), kt)
+        return SVGFOutput(
+            reprojected=rep.illum, reprojected_var=rep.variance,
+            variance_illum=var_illum, variance_var=var_variance,
+            atrous=illum, atrous_var=variance,
+            history_tap=history_tap, history_tap_var=history_tap_var,
+            modulated=mod, taa=taa_out,
+            moments=rep.moments, history_len=rep.history_len)

@@ -20,6 +20,7 @@ import torch
 
 from tpuray_torch.denoise.common import shift2d
 from tpuray_torch.denoise.tile_gather import QUAD, tiled_taps
+from tpuray_torch.utils.metrics import span
 
 Tensor = torch.Tensor
 
@@ -160,49 +161,50 @@ def taa(cur_color: Tensor, prev_color: Tensor, velocity: Tensor,
     global image and read from the shard; a pixel whose history taps lie
     outside the shard rejects its history (blend 1), as tpuray's hist_ok
     does. tiled_fetch: the tile-windowed fetch (history_fetch_tiled)."""
-    h, w = linear_z.shape
-    dev = linear_z.device
-    sky = linear_z == 1.0
-    hist_ok = None
+    with span("tpuray.taa"):
+        h, w = linear_z.shape
+        dev = linear_z.device
+        sky = linear_z == 1.0
+        hist_ok = None
 
-    if static_camera:
-        # motion == 0: the history is the same pixel
-        vel = torch.zeros((h, w, 2), dtype=torch.float32, device=dev)
-        prev = prev_color
-    elif tiled_fetch:
-        vel = closest_velocity(velocity, linear_z)
-        prev, hist_ok = history_fetch_tiled(prev_color, vel, row_window)
-    else:
-        vel = closest_velocity(velocity, linear_z)
-        row0, gh = row_window if row_window is not None else (0, h)
-        yy, xx = torch.meshgrid(torch.arange(h, device=dev) + row0,
-                                torch.arange(w, device=dev), indexing="ij")
-        u = torch.clamp((xx + 0.5) / w - vel[..., 0], 0.0, 1.0)
-        v = torch.clamp((yy + 0.5) / gh - vel[..., 1], 0.0, 1.0)
-        prev, hist_ok = bilinear_fetch_clamped(prev_color, u, v, row_window)
+        if static_camera:
+            # motion == 0: the history is the same pixel
+            vel = torch.zeros((h, w, 2), dtype=torch.float32, device=dev)
+            prev = prev_color
+        elif tiled_fetch:
+            vel = closest_velocity(velocity, linear_z)
+            prev, hist_ok = history_fetch_tiled(prev_color, vel, row_window)
+        else:
+            vel = closest_velocity(velocity, linear_z)
+            row0, gh = row_window if row_window is not None else (0, h)
+            yy, xx = torch.meshgrid(torch.arange(h, device=dev) + row0,
+                                    torch.arange(w, device=dev), indexing="ij")
+            u = torch.clamp((xx + 0.5) / w - vel[..., 0], 0.0, 1.0)
+            v = torch.clamp((yy + 0.5) / gh - vel[..., 1], 0.0, 1.0)
+            prev, hist_ok = bilinear_fetch_clamped(prev_color, u, v, row_window)
 
-    now_ycc = rgb_to_ycocgr(taa_tonemap(cur_color))
-    prev_ycc = rgb_to_ycocgr(taa_tonemap(prev))
+        now_ycc = rgb_to_ycocgr(taa_tonemap(cur_color))
+        prev_ycc = rgb_to_ycocgr(taa_tonemap(prev))
 
-    m1 = torch.zeros_like(now_ycc)
-    m2 = torch.zeros_like(now_ycc)
-    for dy in (-1, 0, 1):
-        for dx in (-1, 0, 1):
-            c = rgb_to_ycocgr(taa_tonemap(shift2d(cur_color, dy, dx)))
-            m1 = m1 + c
-            m2 = m2 + c * c
-    mu = m1 / 9.0
-    sigma = torch.sqrt(torch.abs(m2 / 9.0 - mu * mu))
+        m1 = torch.zeros_like(now_ycc)
+        m2 = torch.zeros_like(now_ycc)
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                c = rgb_to_ycocgr(taa_tonemap(shift2d(cur_color, dy, dx)))
+                m1 = m1 + c
+                m2 = m2 + c * c
+        mu = m1 / 9.0
+        sigma = torch.sqrt(torch.abs(m2 / 9.0 - mu * mu))
 
-    prev_ycc = clip_aabb(mu, sigma, prev_ycc)
-    now_rgb = taa_untonemap(ycocgr_to_rgb(now_ycc))
-    prev_rgb = taa_untonemap(ycocgr_to_rgb(prev_ycc))
+        prev_ycc = clip_aabb(mu, sigma, prev_ycc)
+        now_rgb = taa_untonemap(ycocgr_to_rgb(now_ycc))
+        prev_rgb = taa_untonemap(ycocgr_to_rgb(prev_ycc))
 
-    speed = torch.sqrt(vel[..., 0] * vel[..., 0] + vel[..., 1] * vel[..., 1])
-    blend = torch.clamp(0.05 + speed * 100.0, 0.0, 1.0)
-    if hist_ok is not None:
-        blend = torch.where(hist_ok, blend, 1.0)  # no history: the current color
-    out = blend[..., None] * now_rgb + (1.0 - blend)[..., None] * prev_rgb
+        speed = torch.sqrt(vel[..., 0] * vel[..., 0] + vel[..., 1] * vel[..., 1])
+        blend = torch.clamp(0.05 + speed * 100.0, 0.0, 1.0)
+        if hist_ok is not None:
+            blend = torch.where(hist_ok, blend, 1.0)  # no history: the current color
+        out = blend[..., None] * now_rgb + (1.0 - blend)[..., None] * prev_rgb
 
-    passthrough = sky | (frame == 0)
-    return torch.where(passthrough[..., None], cur_color, out)
+        passthrough = sky | (frame == 0)
+        return torch.where(passthrough[..., None], cur_color, out)

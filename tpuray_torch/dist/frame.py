@@ -64,6 +64,7 @@ from tpuray_torch.render.frame_state import FrameState
 from tpuray_torch.render.renderer import accumulate, denoise_and_advance
 from tpuray_torch.scene.config import RenderConfig
 from tpuray_torch.scene.types import Camera
+from tpuray_torch.utils.metrics import FRAME, span
 
 Tensor = torch.Tensor
 
@@ -180,30 +181,31 @@ def render_frame_sharded(scene, camera: Camera, state: FrameState,
     pack_traversal, pack_scene_tables). The denoiser runs K4 and K5 on
     this rank's rows under cfg.pallas_denoise, the plain stages otherwise;
     static_camera as render_frame's (on the card K4 at zero motion)."""
-    check_config(cfg)
-    rows = _check_layout(height, mesh, cfg, halo)
-    row0 = mesh.rank * rows
-    dev = mesh.device
-    scene, camera = scene.to(dev), camera.to(dev)
-    orig, d, px, py = shard_rays(camera, height, width, row0, rows)
-    pt = trace_paths(scene, orig, d, px, py, state.frame_idx, cfg, common_origin=True,
-                     tracer=tracer, tables=tables, pk=pk)
+    with span(FRAME):
+        check_config(cfg)
+        rows = _check_layout(height, mesh, cfg, halo)
+        row0 = mesh.rank * rows
+        dev = mesh.device
+        scene, camera = scene.to(dev), camera.to(dev)
+        orig, d, px, py = shard_rays(camera, height, width, row0, rows)
+        pt = trace_paths(scene, orig, d, px, py, state.frame_idx, cfg, common_origin=True,
+                         tracer=tracer, tables=tables, pk=pk)
 
-    def img(x):
-        return x.reshape(rows, width, *x.shape[1:])
+        def img(x):
+            return x.reshape(rows, width, *x.shape[1:])
 
-    accum = pt_color = accumulate(state, img(pt.color), cfg)
-    # shard rows and row0 are even: no 2x2 quad straddles two shards
-    gbuf = build_gbuffer(
-        point=img(pt.first_hit_point), normal=img(pt.first_hit_normal),
-        valid=img(pt.first_hit_valid), view_proj=camera.view_proj,
-        prev_view_proj=state.prev_view_proj)
-    # a world of one holds the whole image: nothing to exchange
-    image_rows = ShardRows(mesh, row0, height, halo) if mesh.size > 1 else WHOLE_IMAGE
-    new_state, _, final = denoise_and_advance(
-        state, camera, cfg, pt_color, accum, img(pt.emission), img(pt.albedo), gbuf,
-        static_camera, rows=image_rows)
-    return new_state, final, pt_color
+        accum = pt_color = accumulate(state, img(pt.color), cfg)
+        # shard rows and row0 are even: no 2x2 quad straddles two shards
+        gbuf = build_gbuffer(
+            point=img(pt.first_hit_point), normal=img(pt.first_hit_normal),
+            valid=img(pt.first_hit_valid), view_proj=camera.view_proj,
+            prev_view_proj=state.prev_view_proj)
+        # a world of one holds the whole image: nothing to exchange
+        image_rows = ShardRows(mesh, row0, height, halo) if mesh.size > 1 else WHOLE_IMAGE
+        new_state, _, final = denoise_and_advance(
+            state, camera, cfg, pt_color, accum, img(pt.emission), img(pt.albedo), gbuf,
+            static_camera, rows=image_rows)
+        return new_state, final, pt_color
 
 
 def shard_state(state: FrameState, mesh: Mesh) -> FrameState:

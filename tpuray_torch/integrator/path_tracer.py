@@ -38,6 +38,7 @@ from tpuray_torch.kernels import trace_chunked as ktc
 from tpuray_torch.sampling import envmap as env
 from tpuray_torch.sampling import rng
 from tpuray_torch.scene.config import RenderConfig
+from tpuray_torch.utils.metrics import count, span
 
 Tensor = torch.Tensor
 PI = np.float32(np.pi)
@@ -460,11 +461,12 @@ def _compact_budget(n: int, cfg: RenderConfig) -> int:
     return budget
 
 
-def host_count(count: Tensor) -> int:
+def host_count(hits: Tensor) -> int:
     """A device count read on the host: the one read of a frame, the number
     of primary hits, which decides whether the residual pass runs. It waits
     for the primary trace."""
-    return int(count)
+    with span("tpuray.wait.hit_count"):
+        return int(hits)
 
 
 def _merge_residual(out: _ShadeOut, r: _ShadeOut, r_alive: Tensor) -> _ShadeOut:
@@ -542,7 +544,10 @@ def _shade_compacted(pk: PackedScene, tables: ktrace.TraceTables,
         miss_any=(scattered[:, 22] > 0.5) | ~alive0)
 
     if host_count(n_alive) <= budget:
+        count("shaded_lanes", budget)
         return out
+    count("shaded_lanes", budget + n)
+    count("residual", True)
     r_alive = alive0 & ~in_sel
     r = _shade_loop(pk, tables, tracer, cfg, orig, d, px, py, frame,
                     torch.where(r_alive, t0, INF), torch.where(r_alive, idx0, -1),
@@ -568,33 +573,38 @@ def trace_paths(scene, orig: Tensor, d: Tensor, px: Tensor, py: Tensor,
     so the same result up to the order of float operations. The residual
     pass that keeps a frame exact when more lanes hit than the budget is a
     host branch on the hit count, the one value a frame reads back."""
-    check_config(cfg)
-    n = d.shape[0]
-    orig = orig.expand(n, 3)
-    pk = pack_scene_tables(scene) if pk is None else pk
-    tables = pack_traversal(scene) if tables is None else tables
-    aniso = resolve_aniso(scene, cfg)
-    if cfg.integrator == "mis":
-        from tpuray_torch.integrator.mis import trace_paths_mis
-        return trace_paths_mis(pk, tables, tracer, orig, d, px, py,
-                               int(frame), cfg, common_origin, aniso)
+    with span("tpuray.trace_paths"):
+        check_config(cfg)
+        n = d.shape[0]
+        orig = orig.expand(n, 3)
+        pk = pack_scene_tables(scene) if pk is None else pk
+        tables = pack_traversal(scene) if tables is None else tables
+        aniso = resolve_aniso(scene, cfg)
+        count("frame_idx", int(frame))
+        count("lanes", n)
+        if cfg.integrator == "mis":
+            from tpuray_torch.integrator.mis import trace_paths_mis
+            count("shaded_lanes", n)
+            return trace_paths_mis(pk, tables, tracer, orig, d, px, py,
+                                   int(frame), cfg, common_origin, aniso)
 
-    t0, idx0 = trace(tracer, tables, orig, d, INF,
-                     common_origin=common_origin)
-    budget = _compact_budget(n, cfg)
-    if budget:
-        out = _shade_compacted(pk, tables, tracer, cfg, orig, d, px, py,
-                               int(frame), t0, idx0, budget, aniso)
-    else:
-        out = _shade_loop(pk, tables, tracer, cfg, orig, d, px, py, int(frame),
-                          t0, idx0, cfg.tile_coherent_sampling, aniso)
+        t0, idx0 = trace(tracer, tables, orig, d, INF,
+                         common_origin=common_origin)
+        budget = _compact_budget(n, cfg)
+        if budget:
+            out = _shade_compacted(pk, tables, tracer, cfg, orig, d, px, py,
+                                   int(frame), t0, idx0, budget, aniso)
+        else:
+            count("shaded_lanes", n)
+            out = _shade_loop(pk, tables, tracer, cfg, orig, d, px, py, int(frame),
+                              t0, idx0, cfg.tile_coherent_sampling, aniso)
 
-    env_rad = env.env_radiance(pk.env_image, out.miss_dir)
-    light = out.light + torch.where(out.miss_any[..., None],
-                                    env_rad * out.miss_reduction, 0.0)
-    light = clamp_light(light, cfg.clamp_threshold)
+        env_rad = env.env_radiance(pk.env_image, out.miss_dir)
+        light = out.light + torch.where(out.miss_any[..., None],
+                                        env_rad * out.miss_reduction, 0.0)
+        light = clamp_light(light, cfg.clamp_threshold)
 
-    return PTOutput(color=light, emission=out.emission0, albedo=out.albedo0,
-                    first_hit_t=t0, first_hit_valid=out.valid0,
-                    first_hit_point=out.point0,
-                    first_hit_normal=out.normal0)
+        return PTOutput(color=light, emission=out.emission0, albedo=out.albedo0,
+                        first_hit_t=t0, first_hit_valid=out.valid0,
+                        first_hit_point=out.point0,
+                        first_hit_normal=out.normal0)

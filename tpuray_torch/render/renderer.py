@@ -30,6 +30,7 @@ from tpuray_torch.render.frame_state import FrameState
 from tpuray_torch.render.tiling import tile_pixel_coords, untile
 from tpuray_torch.scene.config import DebugView, RenderConfig
 from tpuray_torch.scene.types import Camera
+from tpuray_torch.utils.metrics import FRAME, count, span
 
 Tensor = torch.Tensor
 
@@ -113,6 +114,7 @@ def render_frame(scene, camera: Camera, state: FrameState, cfg: RenderConfig,
         pt_color=pt_color, accum_color=accum, svgf=svgf, gbuffer=gbuf,
         final=final,
         coverage=torch.mean(pt.first_hit_valid.to(torch.float32)))
+    count("coverage", outputs.coverage)
     return new_state, outputs
 
 
@@ -194,9 +196,10 @@ class LaggedScalar:
 
     def read(self) -> float:
         """The value; waits only if the copy has not landed yet."""
-        if self._event is not None:
-            self._event.synchronize()
-        return float(self._host)
+        with span("tpuray.wait.coverage"):
+            if self._event is not None:
+                self._event.synchronize()
+            return float(self._host)
 
 
 class Renderer:
@@ -292,18 +295,19 @@ class Renderer:
     def step(self, camera: Camera) -> FrameOutputs:
         """Render the next frame. Serving builds no autograd graph, whatever
         the scene's tensors require (render_frame differentiates)."""
-        view_proj = camera.view_proj.detach().cpu().numpy()
-        static = still_camera(self.device, self.state.frame_idx, view_proj,
-                              self._prev_view_proj)
-        self.state, out = render_frame(
-            self.scene, camera.to(self.device), self.state, self.frame_cfg,
-            self.cfg.height, self.cfg.width, tracer=self.tracer,
-            tables=self.tables, pk=self.pk, static_camera=static)
-        self._prev_view_proj = view_proj
-        self.last_outputs = out
-        if self.cfg.compact_auto:
-            self._tune_compaction(out)
-        return out
+        with span(FRAME):
+            view_proj = camera.view_proj.detach().cpu().numpy()
+            static = still_camera(self.device, self.state.frame_idx, view_proj,
+                                  self._prev_view_proj)
+            self.state, out = render_frame(
+                self.scene, camera.to(self.device), self.state, self.frame_cfg,
+                self.cfg.height, self.cfg.width, tracer=self.tracer,
+                tables=self.tables, pk=self.pk, static_camera=static)
+            self._prev_view_proj = view_proj
+            self.last_outputs = out
+            if self.cfg.compact_auto:
+                self._tune_compaction(out)
+            return out
 
     def render(self, camera: Camera, n_frames: int = 1) -> FrameOutputs:
         out = None
