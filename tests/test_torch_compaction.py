@@ -1,5 +1,5 @@
-"""Bounce compaction in the port (integrator/path_tracer.py:_shade_compacted,
-render/renderer.py's budget buckets) against tpuray on the CPU.
+"""Bounce compaction in the port (integrator/path_tracer.py:select_hits,
+shade_selected, render/renderer.py's budget buckets) against tpuray on the CPU.
 
 The compacted loop shades the lanes whose primary ray hit, packed densely;
 every sample stream is keyed on pixel, never on lane, so a pixel gets the

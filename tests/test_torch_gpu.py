@@ -847,6 +847,216 @@ def test_spans_stay_on_the_host(cuda_scene):
     assert sorted(dev) == sorted(dev_off)
 
 
+# ---- the path tracer's CUDA graphs (integrator/path_graphs.py)
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _assert_bit_equal(a, b, where):
+    """Two nested tuples (or FrameStates) of tensors, bit for bit."""
+    if dataclasses.is_dataclass(a):
+        a, b = dataclasses.astuple(a), dataclasses.astuple(b)
+        names = [f"{where}.{i}" for i in range(len(a))]
+    else:
+        names = [f"{where}.{n}" for n in getattr(a, "_fields", range(len(a)))]
+    for name, x, y in zip(names, a, b):
+        if isinstance(x, torch.Tensor):
+            assert x.shape == y.shape and torch.equal(_bits(x), _bits(y)), name
+        elif isinstance(x, tuple):
+            _assert_bit_equal(x, y, name)
+        else:
+            assert x == y, name
+
+
+def _graph_frames(scene, cfg, cams, sync_each=True, changes=None):
+    """Frames through Renderer.step (the graphs) -> per frame (the state
+    and config before it, the camera, its outputs, the state after, its
+    launches). changes: {frame: RenderConfig fields set before it}, as
+    the viewer's sliders set them."""
+    from tpuray_torch.kernels import launches, reset_launches
+    r = Renderer(scene, cfg)
+    frames = []
+    for i, cam in enumerate(cams):
+        if changes and i in changes:
+            r.cfg = r.cfg.replace(**changes[i])
+        state, fcfg = r.state, r.frame_cfg
+        reset_launches()
+        out = r.step(cam)
+        frames.append((state, fcfg, cam, out, r.state, launches()))
+        if sync_each:
+            torch.cuda.synchronize()
+    return r, frames
+
+
+def _check_against_eager(r, frames):
+    """Each frame bit-equal to eager render_frame from the same state and
+    config, with the same launches."""
+    from tpuray_torch.kernels import launches, reset_launches
+    from tpuray_torch.render.renderer import render_frame
+    h, w = r.cfg.height, r.cfg.width
+    for i, (state, fcfg, cam, out, after, got) in enumerate(frames):
+        reset_launches()
+        want_state, want = render_frame(r.scene, cam.to("cuda"), state, fcfg, h, w,
+                                        tables=r.tables, pk=r.pk)
+        assert launches() == got, i
+        _assert_bit_equal(out, want, f"frame {i}")
+        _assert_bit_equal(after, want_state, f"state {i}")
+
+
+def _orbit(n, size, radius, device="cpu"):
+    cam = OrbitCamera(width=size, height=size, radius=radius)
+    out = []
+    for _ in range(n):
+        cam.rotate(0.5, 0.0)
+        out.append(cam.snapshot(device))
+    return out
+
+
+@pytest.mark.parametrize("case", ["bucket_switch", "residual", "forest", "aniso",
+                                  "sliders"])
+def test_graph_frames_bit_equal_eager(cuda_scene, cuda_forest, case):
+    """40 orbit frames through Renderer.step, whose path tracer replays
+    CUDA graphs, against eager render_frame from the same states: every
+    FrameOutputs field and every FrameState tensor bit-equal, frame after
+    frame, with equal launches. bucket_switch: the test scene seen from
+    afar (15-17% of the rays hit) under compact_auto, 0.5 then 0.25 after the
+    first tuner read; residual: the test scene at the 1/8 bucket, every
+    frame past its budget (B'); forest: uncompacted (U); aniso: an
+    anisotropic material (build_onb in the graph) at a budget of 7/8;
+    sliders: the bucket switch with the viewer's sliders moved on the way,
+    the denoiser's (the graphs kept) and the path tracer's (new graphs)."""
+    size = 128
+    scene, _ = cuda_forest if case == "forest" else cuda_scene
+    cfg = RenderConfig(width=size, height=size)
+    radius = {"bucket_switch": 7.0, "residual": 2.0, "forest": 4.0, "aniso": 2.0,
+              "sliders": 7.0}[case]
+    changes = None
+    if case == "sliders":
+        changes = {4: dict(sigma_l=2.5), 5: dict(num_atrous_iterations=3),
+                   6: dict(clamp_threshold=8.0), 7: dict(clamp_threshold=6.0),
+                   9: dict(max_tracing_depth=3), 25: dict(sigma_n=64.0, accumulate=False),
+                   30: dict(max_tracing_depth=2)}
+    if case == "residual":
+        cfg = RenderConfig(width=size, height=size, compact_frac=0.125, compact_auto=False)
+    elif case == "forest":
+        cfg = RenderConfig(width=size, height=size, compact_frac=0.0, compact_auto=False)
+    elif case == "aniso":
+        cfg = RenderConfig(width=size, height=size, compact_frac=0.875, compact_auto=False)
+        m = scene.materials
+        scene = scene.replace(materials=m.replace(anisotropic=torch.full_like(m.anisotropic, 0.6)))
+    r, frames = _graph_frames(scene, cfg, _orbit(40, size, radius), changes=changes)
+    _check_against_eager(r, frames)
+    parts = set(r._graphs.parts)
+    assert parts == {"bucket_switch": {"A", "B"}, "residual": {"A", "B'"},
+                     "forest": {"U"}, "aniso": {"A", "B"}, "sliders": {"A", "B"}}[case]
+    if case in ("bucket_switch", "sliders"):
+        fracs = [f[1].compact_frac for f in frames]
+        assert fracs[:16] == [0.5] * 16 and fracs[16:] == [0.25] * 24, fracs
+    if case == "aniso":
+        assert r.cfg.enable_aniso is True
+
+
+@pytest.mark.parametrize("case", ["tree", "forest"])
+def test_graph_frames_without_sync(cuda_scene, cuda_forest, case):
+    """8 frames issued back to back, the caller synchronising nowhere
+    (cameras on the card: the frame's scalars staged from them), each
+    then held bit-equal to eager render_frame: no output or state of a
+    frame aliases a buffer that a later replay overwrites."""
+    size = 128
+    scene, _ = cuda_forest if case == "forest" else cuda_scene
+    frac = 0.0 if case == "forest" else 0.75
+    cfg = RenderConfig(width=size, height=size, compact_frac=frac, compact_auto=False)
+    r, frames = _graph_frames(scene, cfg, _orbit(10, size, 3.0, "cuda"), sync_each=False)
+    _check_against_eager(r, frames)
+
+
+def test_graph_frames_memory(cuda_scene):
+    """torch.cuda.max_memory_allocated over 40 frames across the bucket
+    switch, the graphs' Renderer within 1% of an eager one's."""
+    from tpuray_torch.render import renderer as rmod
+    scene, _ = cuda_scene
+    size = 256
+    cfg = RenderConfig(width=size, height=size)
+    cams = _orbit(40, size, 7.0)
+
+    def peak(engaged):
+        real = rmod.engages
+        if not engaged:
+            rmod.engages = lambda *a: False
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            r = Renderer(scene, cfg)
+            for cam in cams:
+                r.step(cam)
+            torch.cuda.synchronize()
+            assert (r._graphs is not None) == engaged
+            return torch.cuda.max_memory_allocated() - base
+        finally:
+            rmod.engages = real
+    eager, graphs = peak(False), peak(True)
+    assert graphs <= eager * 1.01, (graphs, eager)
+
+
+@pytest.mark.parametrize("how", ["cycle", "thread"])
+def test_graph_capture_outlives_garbage_graphs(cuda_scene, monkeypatch, how):
+    """Another Renderer's graphs let go while a capture runs: as cyclic
+    garbage, the collector at its lowest threshold (cycle), or by their
+    last reference dropped on another thread, which then collects
+    (thread). The capture completes, its frames equal a fresh Renderer's,
+    and the old graphs are destroyed at the next frame, under the capture
+    lock."""
+    import gc
+    import threading
+    from tpuray_torch.integrator import path_graphs as pg
+    scene, _ = cuda_scene
+    cfg = RenderConfig(width=64, height=64, compact_frac=0.75, compact_auto=False)
+    cam = OrbitCamera(width=64, height=64).snapshot()
+    old = Renderer(scene, cfg)
+    for _ in range(3):
+        old.step(cam)
+    assert old._graphs.parts
+    held = [old]
+    del old
+    real = pg.pt.select_hits
+    retired = []  # the graphs waiting, after the other thread let go of them
+
+    def select(*a):
+        if held and torch.cuda.is_current_stream_capturing():
+            if how == "cycle":
+                box = [held.pop()]
+                box.append(box)  # only the collector frees it, and the old graphs with it
+            else:
+                def drop():
+                    held.pop()
+                    gc.collect()
+                t = threading.Thread(target=drop)
+                t.start()
+                t.join()
+                retired.append(len(pg._RETIRED))
+        return real(*a)
+    monkeypatch.setattr(pg.pt, "select_hits", select)
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        r = Renderer(scene, cfg)
+        outs = [r.step(cam) for _ in range(3)]
+        torch.cuda.synchronize()
+        gc.collect()
+    finally:
+        gc.set_threshold(*threshold)
+    assert not held and set(r._graphs.parts) == {"A", "B"}
+    # the old Renderer's A and B waited, and went at a later frame's start
+    assert retired == ([2] if how == "thread" else [])
+    r.step(cam)
+    assert not pg._RETIRED
+    _assert_bit_equal(outs[2], Renderer(scene, cfg).render(cam, 3), "frame 2")
+
+
 # ---- distribution: one NCCL rank on the card (NCCL puts one rank on a card)
 
 

@@ -46,7 +46,7 @@ of a shard's edge (ROADMAP.md §3).
 
 Primary rays are row-major per shard with global pixel coordinates, so the
 RNG streams are the single-device frame's. Under compaction each rank ranks
-and budgets its own hits (path_tracer._shade_compacted).
+and budgets its own hits (path_tracer.select_hits).
 """
 from __future__ import annotations
 

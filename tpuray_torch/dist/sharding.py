@@ -22,7 +22,7 @@ import torch.distributed as dist
 from tpuray_torch.integrator.gather_tables import PackedScene
 from tpuray_torch.integrator.path_tracer import KERNELS, Tracer, trace_paths
 from tpuray_torch.kernels.trace import TraceTables
-from tpuray_torch.render.renderer import pixel_rays
+from tpuray_torch.render.tiling import pixel_rays
 from tpuray_torch.scene.config import RenderConfig
 from tpuray_torch.scene.types import Camera
 
@@ -99,7 +99,7 @@ def shard_span(height: int, mesh: Mesh) -> tuple[int, int]:
 def shard_rays(camera: Camera, height: int, width: int, row0: int, rows: int
                ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """The primary rays of rows row0 .. row0 + rows, row-major with global
-    pixel coordinates -> (orig, d, px, py) as renderer.pixel_rays gives
+    pixel coordinates -> (orig, d, px, py) as tiling.pixel_rays gives
     them: the directions and RNG keys of the single-device render. Rows
     past the image (padding) repeat the last one."""
     dev = camera.eye.device

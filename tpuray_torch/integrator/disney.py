@@ -216,9 +216,12 @@ def evaluate_pdf(v: Tensor, n: Tensor, l: Tensor, mat: ShadeMaterial,
 
 def build_onb(n: Tensor) -> tuple[Tensor, Tensor]:
     """Orthonormal basis around n."""
-    ez = torch.tensor([0.0, 0.0, 1.0], dtype=n.dtype, device=n.device)
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=n.dtype, device=n.device)
-    helper = torch.where((torch.abs(n[..., 0]) > 0.999)[..., None], ez, ex)
+    # helper: ez where n lies near the x axis, else ex, made on n's device
+    # (a constant copied from pageable host memory waits for the stream,
+    # and a CUDA graph cannot capture it)
+    near_x = torch.abs(n[..., 0:1]) > 0.999
+    helper = torch.cat([~near_x, torch.zeros_like(near_x), near_x],
+                       dim=-1).to(n.dtype)
     tangent = safe_normalize(cross(n, helper))
     bitangent = safe_normalize(cross(n, tangent))
     return tangent, bitangent

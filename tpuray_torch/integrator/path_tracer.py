@@ -13,6 +13,10 @@ walks in the JAX package's order: env shadow, point shadow, bounce ray.
 integrator="mis" hands the frame to integrator/mis.py. With
 cfg.compact_frac > 0 the NEE integrator shades only the lanes whose primary
 ray hit, packed densely into a buffer of compact_frac * N lanes (trace_paths).
+The NEE frame is one sequence of parts (nee_paths), functions of their
+tensors and the frame's keys (rng.FrameKeys): trace_paths runs them in
+turn, integrator/path_graphs.py captures them as CUDA graphs and replays
+them with the keys staged on the device.
 
 Differentiable as the JAX package's is: the traversal is topology only (its
 entries run under torch.no_grad, kernels/trace.py), resolve_hit detaches t
@@ -302,14 +306,15 @@ class _ShadeOut(NamedTuple):
 
 def _shade_loop(pk: PackedScene, tables: ktrace.TraceTables,
                 tracer: Tracer, cfg: RenderConfig, orig: Tensor,
-                d: Tensor, px: Tensor, py: Tensor, frame: int,
+                d: Tensor, px: Tensor, py: Tensor, keys: rng.FrameKeys,
                 first_t: Tensor, first_idx: Tensor, coherent: bool,
                 aniso: bool) -> _ShadeOut:
     """The per-bounce NEE + BSDF loop, with the bounce-0 traversal given.
-    Every sample stream is keyed on (px, py, frame), never on lane position."""
+    Every sample stream is keyed on (px, py) and the frame's keys, never on
+    lane position."""
     n = d.shape[0]
     dev = d.device
-    seed = rng.pixel_seed(px, py, frame)
+    seed = rng.keyed_seed(px, py, keys.seed_term)
     # the reference draws (and discards) an AA jitter first
     _, seed = rng.rand(seed)
     _, seed = rng.rand(seed)
@@ -318,7 +323,7 @@ def _shade_loop(pk: PackedScene, tables: ktrace.TraceTables,
         # one secondary-ray stream per 32x32 screen tile (see RenderConfig)
         tpx = px.to(torch.int64) // 32 + 0x8000
         tpy = py.to(torch.int64) // 32 + 0x8000
-        tseed = rng.pixel_seed(tpx, tpy, frame)
+        tseed = rng.keyed_seed(tpx, tpy, keys.seed_term)
         cpr_u, cpr_v = rng.cranley_patterson_offsets(tpx, tpy)
     else:
         cpr_u, cpr_v = rng.cranley_patterson_offsets(px, py)
@@ -359,8 +364,7 @@ def _shade_loop(pk: PackedScene, tables: ktrace.TraceTables,
         alive = alive & hit.valid
 
         # BSDF sample (Sobol + CPR + stream xi3)
-        sob = rng.sobol_vec2(frame + 1, bounce)
-        xi1, xi2 = rng.cranley_patterson_rotate(sob, cpr_u, cpr_v)
+        xi1, xi2 = rng.cranley_patterson_rotate(keys.sobol[bounce], cpr_u, cpr_v)
         if coherent:
             xi3, tseed = rng.rand(tseed)
         else:
@@ -469,6 +473,17 @@ def host_count(hits: Tensor) -> int:
         return int(hits)
 
 
+def overflows(n_alive: Tensor, budget: int, n: int) -> bool:
+    """Whether more primary rays hit than the budget holds (host_count's
+    read), with the frame's counters: the lanes shaded, the residual pass."""
+    if host_count(n_alive) <= budget:
+        count("shaded_lanes", budget)
+        return False
+    count("shaded_lanes", budget + n)
+    count("residual", True)
+    return True
+
+
 def _merge_residual(out: _ShadeOut, r: _ShadeOut, r_alive: Tensor) -> _ShadeOut:
     """The compacted pass's outputs with the residual pass's added. Lanes the
     residual pass masked off report a bounce-0 miss, which is scrubbed (it
@@ -484,32 +499,47 @@ def _merge_residual(out: _ShadeOut, r: _ShadeOut, r_alive: Tensor) -> _ShadeOut:
         normal0=out.normal0 + r.normal0)
 
 
-def _shade_compacted(pk: PackedScene, tables: ktrace.TraceTables,
-                     tracer: Tracer, cfg: RenderConfig, orig: Tensor,
-                     d: Tensor, px: Tensor, py: Tensor, frame: int,
-                     t0: Tensor, idx0: Tensor, budget: int, aniso: bool
-                     ) -> _ShadeOut:
-    """_shade_loop over the first `budget` lanes whose primary ray hit, in
-    tile order, then scattered back (tpuray/integrator/path_tracer.py:
-    600-695). Padding lanes (fewer hits than the budget) trace as misses and
-    are masked at the scatter. Sample streams are keyed on pixel, never on
-    lane, so every pixel gets the uncompacted loop's math. When more lanes
-    hit than the budget, a residual full-width pass shades the rest."""
-    n = d.shape[0]
-    dev = d.device
-    coherent = cfg.tile_coherent_sampling
+class Selection(NamedTuple):
+    """Compaction's choice of lanes: the first `budget` lanes whose primary
+    ray hit, in tile order."""
+
+    sel: Tensor      # (budget,) int64: the lane of rank k (lane 0 past the hits)
+    lane_ok: Tensor  # (budget,) bool: slot k holds a hit
+    in_sel: Tensor   # (N,) bool: the lane is selected
+    n_alive: Tensor  # () the primary hits (read by overflows)
+
+
+def select_hits(idx0: Tensor, budget: int) -> Selection:
+    """The compacted wavefront's lanes, without a host sync: each selected
+    lane writes its id to slot rank, the others to a dropped slot budget;
+    slots past the hit count keep lane 0 (masked by lane_ok)."""
+    n = idx0.shape[0]
+    dev = idx0.device
     alive0 = idx0 >= 0
     rank = torch.cumsum(alive0.to(torch.int32), 0) - 1
     in_sel = alive0 & (rank < budget)
-    # sel[k] = the lane of rank k, without a host sync: each selected lane
-    # writes its id to slot rank, the others to a dropped slot budget;
-    # slots past the hit count keep lane 0 (masked by lane_ok)
     slot = torch.where(in_sel, rank.to(torch.int64), budget)
     sel = torch.zeros(budget + 1, dtype=torch.int64, device=dev).scatter_(
         0, slot, torch.arange(n, device=dev))[:budget]
     n_alive = rank[-1] + 1
     lane_ok = torch.arange(budget, device=dev) < n_alive
+    return Selection(sel=sel, lane_ok=lane_ok, in_sel=in_sel, n_alive=n_alive)
 
+
+def shade_selected(pk: PackedScene, tables: ktrace.TraceTables,
+                   tracer: Tracer, cfg: RenderConfig, orig: Tensor,
+                   d: Tensor, px: Tensor, py: Tensor, keys: rng.FrameKeys,
+                   t0: Tensor, idx0: Tensor, s: Selection, aniso: bool
+                   ) -> _ShadeOut:
+    """_shade_loop over the selected lanes, then scattered back
+    (tpuray/integrator/path_tracer.py:600-695). Padding lanes (fewer hits
+    than the budget) trace as misses and are masked at the scatter. Sample
+    streams are keyed on pixel, never on lane, so every pixel gets the
+    uncompacted loop's math. Lanes past the budget are left to
+    shade_residual."""
+    n = d.shape[0]
+    dev = d.device
+    sel, lane_ok = s.sel, s.lane_ok
     # one gather per dtype
     gf = torch.cat([orig, d, t0[:, None]], dim=1)[sel]
     gi = torch.stack([px.to(torch.int64), py.to(torch.int64),
@@ -517,10 +547,10 @@ def _shade_compacted(pk: PackedScene, tables: ktrace.TraceTables,
     c_d = gf[:, 3:6]
     c = _shade_loop(
         pk, tables, tracer, cfg, gf[:, 0:3], c_d, gi[:, 0].to(px.dtype),
-        gi[:, 1].to(py.dtype), frame, torch.where(lane_ok, gf[:, 6], INF),
+        gi[:, 1].to(py.dtype), keys, torch.where(lane_ok, gf[:, 6], INF),
         torch.where(lane_ok, gi[:, 2], -1).to(idx0.dtype),
         # tile keying is pixel-derived (px // 32), never lane position
-        coherent, aniso)
+        cfg.tile_coherent_sampling, aniso)
 
     # one scatter of every per-lane output; miss_dir goes as a delta on d so
     # that lanes that never miss keep a unit direction (a zero one would NaN
@@ -535,7 +565,8 @@ def _shade_compacted(pk: PackedScene, tables: ktrace.TraceTables,
         0, sel, torch.where(lane_ok[..., None], packed, 0.0))
     # primary misses are never selected: they miss at bounce 0 with
     # throughput 1
-    out = _ShadeOut(
+    alive0 = idx0 >= 0
+    return _ShadeOut(
         light=scattered[:, 0:3], emission0=scattered[:, 3:6],
         albedo0=scattered[:, 6:9], point0=scattered[:, 9:12],
         normal0=scattered[:, 12:15], miss_dir=d + scattered[:, 15:18],
@@ -543,16 +574,110 @@ def _shade_compacted(pk: PackedScene, tables: ktrace.TraceTables,
         valid0=scattered[:, 21] > 0.5,
         miss_any=(scattered[:, 22] > 0.5) | ~alive0)
 
-    if host_count(n_alive) <= budget:
-        count("shaded_lanes", budget)
-        return out
-    count("shaded_lanes", budget + n)
-    count("residual", True)
-    r_alive = alive0 & ~in_sel
-    r = _shade_loop(pk, tables, tracer, cfg, orig, d, px, py, frame,
+
+def shade_residual(pk: PackedScene, tables: ktrace.TraceTables,
+                   tracer: Tracer, cfg: RenderConfig, orig: Tensor,
+                   d: Tensor, px: Tensor, py: Tensor, keys: rng.FrameKeys,
+                   t0: Tensor, idx0: Tensor, s: Selection, out: _ShadeOut,
+                   aniso: bool) -> _ShadeOut:
+    """The residual full-width pass over the hits past the budget, merged
+    into shade_selected's outputs: it keeps an overflowing frame exact."""
+    r_alive = (idx0 >= 0) & ~s.in_sel
+    r = _shade_loop(pk, tables, tracer, cfg, orig, d, px, py, keys,
                     torch.where(r_alive, t0, INF), torch.where(r_alive, idx0, -1),
-                    coherent, aniso)
+                    cfg.tile_coherent_sampling, aniso)
     return _merge_residual(out, r, r_alive)
+
+
+def finish(pk: PackedScene, cfg: RenderConfig, out: _ShadeOut, t0: Tensor
+           ) -> PTOutput:
+    """The env lookup of the rays that missed, and the final clamp."""
+    env_rad = env.env_radiance(pk.env_image, out.miss_dir)
+    light = out.light + torch.where(out.miss_any[..., None],
+                                    env_rad * out.miss_reduction, 0.0)
+    light = clamp_light(light, cfg.clamp_threshold)
+    return PTOutput(color=light, emission=out.emission0, albedo=out.albedo0,
+                    first_hit_t=t0, first_hit_valid=out.valid0,
+                    first_hit_point=out.point0, first_hit_normal=out.normal0)
+
+
+def eager(name: str, fn: Callable):
+    """nee_paths' part runner off the graphs: run the part now."""
+    return fn()
+
+
+class Primary(NamedTuple):
+    """A compacted frame's first part: the primary walk and compaction's
+    selection."""
+
+    t0: Tensor
+    idx0: Tensor
+    s: Selection
+
+
+def nee_paths(pk: PackedScene, tables: ktrace.TraceTables, tracer: Tracer,
+              cfg: RenderConfig, rays: Callable[[], tuple], n: int,
+              keys: rng.FrameKeys, aniso: bool, common_origin: bool = False,
+              run: Callable = eager) -> PTOutput:
+    """The NEE frame in its parts, the one sequence of trace_paths and of
+    Renderer.step's graphs (integrator/path_graphs.py). Uncompacted, one
+    part "U": the primary walk, _shade_loop, finish. Compacted, part "A"
+    (the primary walk, select_hits), then part "B" (shade_selected, finish)
+    or, when the hits overflow the budget, "B'" (B with shade_residual).
+    Which of the two is the host's read of the hit count (overflows), made
+    once: eagerly once shade_selected is issued, so that the device shades
+    while the host waits; by the graphs before they choose B or B'.
+
+    run(name, fn) runs a part: `eager` calls fn; PathGraphs captures fn as
+    a CUDA graph and replays it. name is a part's name, or for the second
+    part a function that reads it. rays() gives the frame's (orig, d, px,
+    py) of n lanes; each part calls it, so no image-sized tensor lies
+    between parts but what A hands to B. Counts lanes and shaded_lanes."""
+    count("lanes", n)
+    budget = _compact_budget(n, cfg)
+    if not budget:
+        count("shaded_lanes", n)
+
+        def whole() -> PTOutput:
+            orig, d, px, py = rays()
+            t0, idx0 = trace(tracer, tables, orig, d, INF, common_origin=common_origin)
+            out = _shade_loop(pk, tables, tracer, cfg, orig, d, px, py, keys, t0,
+                              idx0, cfg.tile_coherent_sampling, aniso)
+            return finish(pk, cfg, out, t0)
+        return run("U", whole)
+
+    def select() -> Primary:
+        orig, d, _, _ = rays()
+        t0, idx0 = trace(tracer, tables, orig, d, INF, common_origin=common_origin)
+        return Primary(t0, idx0, select_hits(idx0, budget))
+    a = run("A", select)
+    read: list[bool] = []
+
+    def residual() -> bool:
+        if not read:
+            read.append(overflows(a.s.n_alive, budget, n))
+        return read[0]
+
+    def shade() -> PTOutput:
+        orig, d, px, py = rays()
+        args = (pk, tables, tracer, cfg, orig, d, px, py, keys, a.t0, a.idx0, a.s)
+        out = shade_selected(*args, aniso)
+        if residual():
+            out = shade_residual(*args, out, aniso)
+        return finish(pk, cfg, out, a.t0)
+    return run(lambda: "B'" if residual() else "B", shade)
+
+
+# the RenderConfig fields that nee_paths reads: configs equal in these trace
+# the same paths (PathGraphs keys its graphs on them)
+PATH_FIELDS = ("integrator", "max_tracing_depth", "enable_aniso", "clamp_threshold",
+               "use_normal_map", "tile_coherent_sampling", "fused_secondary",
+               "compact_frac", "reference_quirks")
+
+
+def path_key(cfg: RenderConfig) -> tuple:
+    """cfg's PATH_FIELDS, in order."""
+    return tuple(getattr(cfg, f) for f in PATH_FIELDS)
 
 
 def trace_paths(scene, orig: Tensor, d: Tensor, px: Tensor, py: Tensor,
@@ -569,10 +694,17 @@ def trace_paths(scene, orig: Tensor, d: Tensor, px: Tensor, py: Tensor,
     given.
 
     cfg.compact_frac > 0 shades only the lanes that hit, at
-    _compact_budget(N) lanes (_shade_compacted): per pixel the same math,
-    so the same result up to the order of float operations. The residual
-    pass that keeps a frame exact when more lanes hit than the budget is a
-    host branch on the hit count, the one value a frame reads back."""
+    _compact_budget(N) lanes (select_hits, shade_selected): per pixel the
+    same math, so the same result up to the order of float operations. The
+    residual pass (shade_residual) that keeps a frame exact when more lanes
+    hit than the budget is a host branch on the hit count (overflows), the
+    one value a frame reads back.
+
+    The NEE frame runs nee_paths' parts here, one after another. Renderer.step
+    on the card replays the same parts as CUDA graphs
+    (integrator/path_graphs.py), with the frame's keys and camera staged on
+    the device; every other caller (render_frame directly, the train step,
+    the sharded frame, the CPU, the PLAIN tracer, MIS) comes here."""
     with span("tpuray.trace_paths"):
         check_config(cfg)
         n = d.shape[0]
@@ -581,30 +713,12 @@ def trace_paths(scene, orig: Tensor, d: Tensor, px: Tensor, py: Tensor,
         tables = pack_traversal(scene) if tables is None else tables
         aniso = resolve_aniso(scene, cfg)
         count("frame_idx", int(frame))
-        count("lanes", n)
         if cfg.integrator == "mis":
             from tpuray_torch.integrator.mis import trace_paths_mis
+            count("lanes", n)
             count("shaded_lanes", n)
             return trace_paths_mis(pk, tables, tracer, orig, d, px, py,
                                    int(frame), cfg, common_origin, aniso)
-
-        t0, idx0 = trace(tracer, tables, orig, d, INF,
-                         common_origin=common_origin)
-        budget = _compact_budget(n, cfg)
-        if budget:
-            out = _shade_compacted(pk, tables, tracer, cfg, orig, d, px, py,
-                                   int(frame), t0, idx0, budget, aniso)
-        else:
-            count("shaded_lanes", n)
-            out = _shade_loop(pk, tables, tracer, cfg, orig, d, px, py, int(frame),
-                              t0, idx0, cfg.tile_coherent_sampling, aniso)
-
-        env_rad = env.env_radiance(pk.env_image, out.miss_dir)
-        light = out.light + torch.where(out.miss_any[..., None],
-                                        env_rad * out.miss_reduction, 0.0)
-        light = clamp_light(light, cfg.clamp_threshold)
-
-        return PTOutput(color=light, emission=out.emission0, albedo=out.albedo0,
-                        first_hit_t=t0, first_hit_valid=out.valid0,
-                        first_hit_point=out.point0,
-                        first_hit_normal=out.normal0)
+        return nee_paths(pk, tables, tracer, cfg, lambda: (orig, d, px, py), n,
+                         rng.frame_keys(frame, cfg.max_tracing_depth), aniso,
+                         common_origin)

@@ -2,7 +2,10 @@
 
 reset_launches and launches read every wrapper's launch counter at once:
 K1-K3 (trace.py), K6 (trace_chunked.py), K4 (reproject.py), K5 (atrous.py)
-and K7 (gather.py).
+and K7 (gather.py). A wrapper counts the launches it makes from Python; a
+replayed CUDA graph makes none, so its launches, tallied as it was
+captured, are added at each replay (add_launches;
+integrator/path_graphs.py).
 """
 from __future__ import annotations
 
@@ -23,3 +26,10 @@ def launches() -> dict[str, int]:
     for m in _counted():
         out.update(m.LAUNCHES)
     return out
+
+
+def add_launches(tally: dict[str, int]) -> None:
+    """Add launches that no wrapper call made: {"k1": n, ...}."""
+    for m in _counted():
+        for k in m.LAUNCHES:
+            m.LAUNCHES[k] += tally.get(k, 0)

@@ -9,12 +9,16 @@ a-trous chain; denoise/svgf.py), and the FrameState update.
 
 The Renderer picks the compaction budget of the next frames from the hit
 coverage of an earlier frame (cfg.compact_auto), read a period late so
-that the read never waits for the device.
+that the read never waits for the device. On the card (the KERNELS tracer,
+the NEE integrator) Renderer.step replays the camera rays and the path
+tracer as CUDA graphs (integrator/path_graphs.py); render_frame called
+directly, the train step and the sharded frame run them eagerly.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+import functools
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -23,11 +27,12 @@ from tpuray_torch.denoise.reproject import gather_mode
 from tpuray_torch.denoise.svgf import WHOLE_IMAGE, ImageRows, SVGFOutput, svgf_pipeline
 from tpuray_torch.integrator.gather_tables import PackedScene, pack_scene_tables
 from tpuray_torch.integrator.gbuffer import GBuffer, build_gbuffer
+from tpuray_torch.integrator.path_graphs import PathGraphs, engages
 from tpuray_torch.integrator.path_tracer import (
-    KERNELS, Tracer, check_config, pack_traversal, resolve_aniso, trace_paths)
+    KERNELS, PTOutput, Tracer, check_config, pack_traversal, resolve_aniso, trace_paths)
 from tpuray_torch.kernels.trace import TraceTables
 from tpuray_torch.render.frame_state import FrameState
-from tpuray_torch.render.tiling import tile_pixel_coords, untile
+from tpuray_torch.render.tiling import camera_rays, untile
 from tpuray_torch.scene.config import DebugView, RenderConfig
 from tpuray_torch.scene.types import Camera
 from tpuray_torch.utils.metrics import FRAME, count, span
@@ -51,23 +56,6 @@ def tonemap(c: Tensor, limit: float = 1.5, gamma: float = 2.2) -> Tensor:
     return torch.pow(torch.clamp_min(c, 0.0), 1.0 / gamma)
 
 
-def camera_rays(camera: Camera, height: int, width: int
-                ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
-    """Primary rays in 32x32-tile order -> (orig (N, 3) view, d (N, 3),
-    px, py). px/py are GL frag coords (bottom-up), padding rows included."""
-    return pixel_rays(camera, height, width,
-                      *tile_pixel_coords(height, width, camera.eye.device))
-
-
-def pixel_rays(camera: Camera, height: int, width: int, xx: Tensor, yy: Tensor
-               ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
-    """The primary rays of pixels (xx, yy) (int32, row 0 the top row), in
-    their order -> (orig (N, 3) view, d (N, 3), px, py)."""
-    d = camera.pixel_directions(height, width, xx, yy)
-    orig = camera.eye.expand(xx.shape[0], 3)
-    return orig, d, xx, height - 1 - yy
-
-
 def still_camera(device: torch.device, frame_idx: int, view_proj: np.ndarray,
                  prev_view_proj: np.ndarray) -> bool:
     """Whether a frame takes the denoiser's static-camera specialisation:
@@ -84,19 +72,25 @@ def render_frame(scene, camera: Camera, state: FrameState, cfg: RenderConfig,
                  tracer: Tracer = KERNELS,
                  tables: TraceTables | None = None,
                  pk: PackedScene | None = None,
-                 static_camera: bool = False
+                 static_camera: bool = False,
+                 paths: Callable[[int, RenderConfig, int, int], PTOutput] | None = None
                  ) -> tuple[FrameState, FrameOutputs]:
     """Render one frame and advance the temporal state.
 
     static_camera=True takes the denoiser's static-camera specialisation
     (motion == 0): its plain branch off the card, K4 at zero motion under
     cfg.pallas_denoise on it; the Renderer selects it by still_camera.
+    paths: what stands in for camera_rays + trace_paths, called with
+    (frame index, cfg, height, width) (Renderer.step's graph replays,
+    integrator/path_graphs.py).
     Differentiable with enable_svgf=False, or with pallas_denoise=False
     (K4 and K5 are forward-only and raise under grad)."""
-    frame = state.frame_idx
-    orig, d, px, py = camera_rays(camera, height, width)
-    pt = trace_paths(scene, orig, d, px, py, frame, cfg, common_origin=True,
-                     tracer=tracer, tables=tables, pk=pk)
+    if paths is None:
+        orig, d, px, py = camera_rays(camera, height, width)
+        pt = trace_paths(scene, orig, d, px, py, state.frame_idx, cfg,
+                         common_origin=True, tracer=tracer, tables=tables, pk=pk)
+    else:
+        pt = paths(state.frame_idx, cfg, height, width)
 
     emission = untile(pt.emission, height, width)
     albedo = untile(pt.albedo, height, width)
@@ -221,7 +215,17 @@ class Renderer:
     moves them to the Renderer's device, and chooses the static-camera
     branch (still_camera) from a host copy of the view matrix (a camera
     built on the host, as OrbitCamera.snapshot() does by default, costs no
-    device read)."""
+    device read).
+
+    On a CUDA device with the KERNELS tracer and the NEE integrator, step()
+    hands the camera rays and the path tracer to PathGraphs
+    (integrator/path_graphs.py): captured as CUDA graphs for each size and
+    each setting of the fields the path tracer reads (path_tracer.path_key:
+    the compaction bucket, not the denoiser's), the frame's scalars (its RNG
+    keys and the camera) staged in one copy, then replayed; a key's first
+    frame runs eagerly. The graphs read the scene tables given at construction, so
+    assigning new tables to a Renderer takes a new Renderer. The denoiser,
+    TAA and the frame's own code run eagerly."""
 
     _BUCKETS = (0.125, 0.25, 0.5)
     _HEADROOM = 1.3
@@ -247,6 +251,7 @@ class Renderer:
         self.last_outputs: FrameOutputs | None = None
         self._steps = 0
         self._pending_cov: LaggedScalar | None = None
+        self._graphs: PathGraphs | None = None  # the path tracer's graphs
 
     @property
     def cfg(self) -> RenderConfig:
@@ -299,10 +304,20 @@ class Renderer:
             view_proj = camera.view_proj.detach().cpu().numpy()
             static = still_camera(self.device, self.state.frame_idx, view_proj,
                                   self._prev_view_proj)
+            cfg = self.frame_cfg
+            paths = None
+            if engages(self.device, self.tracer, cfg):
+                if self._graphs is None:
+                    self._graphs = PathGraphs(self.scene, self.tables, self.pk,
+                                              self.device)
+                paths = functools.partial(self._graphs, camera)
+            elif self._graphs is not None:
+                self._graphs.close()
+                self._graphs = None
             self.state, out = render_frame(
-                self.scene, camera.to(self.device), self.state, self.frame_cfg,
+                self.scene, camera.to(self.device), self.state, cfg,
                 self.cfg.height, self.cfg.width, tracer=self.tracer,
-                tables=self.tables, pk=self.pk, static_camera=static)
+                tables=self.tables, pk=self.pk, static_camera=static, paths=paths)
             self._prev_view_proj = view_proj
             self.last_outputs = out
             if self.cfg.compact_auto:

@@ -6,8 +6,14 @@ outputs line up between the two packages.
 """
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import torch
 
+if TYPE_CHECKING:
+    from tpuray_torch.scene.types import Camera
+
+Tensor = torch.Tensor
 TILE = 32
 
 
@@ -30,9 +36,30 @@ def tile_pixel_coords(height: int, width: int, device="cpu"
 
 
 def untile(flat: torch.Tensor, height: int, width: int) -> torch.Tensor:
-    """(N, ...) tile-major -> (H, W, ...) image (cropping padding)."""
+    """(N, ...) tile-major -> (H, W, ...) image (cropping padding), in
+    memory of its own: the per-ray buffer may be a replayed CUDA graph's
+    output, which the next frame overwrites."""
     hp, wp = padded_size(height), padded_size(width)
     rest = flat.shape[1:]
     img = flat.reshape(hp // TILE, wp // TILE, TILE, TILE, *rest)
     img = torch.movedim(img, 2, 1).reshape(hp, wp, *rest)
+    if img.data_ptr() == flat.data_ptr():  # one tile column: a view
+        img = img.clone()
     return img[:height, :width]
+
+
+def camera_rays(camera: Camera, height: int, width: int
+                ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Primary rays in 32x32-tile order -> (orig (N, 3) view, d (N, 3),
+    px, py). px/py are GL frag coords (bottom-up), padding rows included."""
+    return pixel_rays(camera, height, width,
+                      *tile_pixel_coords(height, width, camera.eye.device))
+
+
+def pixel_rays(camera: Camera, height: int, width: int, xx: Tensor, yy: Tensor
+               ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The primary rays of pixels (xx, yy) (int32, row 0 the top row), in
+    their order -> (orig (N, 3) view, d (N, 3), px, py)."""
+    d = camera.pixel_directions(height, width, xx, yy)
+    orig = camera.eye.expand(xx.shape[0], 3)
+    return orig, d, xx, height - 1 - yy

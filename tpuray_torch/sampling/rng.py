@@ -5,8 +5,16 @@ partial, so the per-pixel streams here run in int64 with `& 0xFFFFFFFF`
 after every multiply and add: values stay below 2^32, products below
 2^62, and the bits equal the uint32 ones exactly. The Sobol point depends
 only on (frame, bounce) and is computed on the host in numpy.
+
+A frame's keys (FrameKeys: pixel_seed's frame term and the Sobol point of
+each bounce) are host values on every path but one: Renderer.step on the
+card stages them into a device block before it replays the path tracer's
+CUDA graphs (integrator/path_graphs.py), and the functions here take
+either form with the same bits (an int64 term, float32 points).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -22,10 +30,20 @@ def u32(x: Tensor) -> Tensor:
     return x.to(torch.int64) & M32
 
 
+def seed_term(frame: int) -> int:
+    """pixel_seed's frame term, frame*26699 in wrapping uint32."""
+    return (int(frame) & M32) * 26699 & M32
+
+
 def pixel_seed(px: Tensor, py: Tensor, frame: int) -> Tensor:
     """Initial Wang-hash stream state: (px*1973 + py*9277 + frame*26699) | 1."""
-    f = (int(frame) & M32) * 26699 & M32
-    s = (u32(px) * 1973 + u32(py) * 9277 + f) & M32
+    return keyed_seed(px, py, seed_term(frame))
+
+
+def keyed_seed(px: Tensor, py: Tensor, term: int | Tensor) -> Tensor:
+    """pixel_seed with its frame term given: a host int, or an int64 device
+    scalar holding the same value (a staged frame's)."""
+    s = (u32(px) * 1973 + u32(py) * 9277 + term) & M32
     return s | 1
 
 
@@ -103,6 +121,31 @@ def sobol_vec2(frame: int, bounce: int) -> np.ndarray:
     return np.stack([sobol(2 * bounce, idx), sobol(2 * bounce + 1, idx)])
 
 
+def sobol_points(frame: int, depth: int) -> np.ndarray:
+    """(depth, 2) float32: the Sobol point of each bounce of frame `frame`
+    (sobol_vec2(frame + 1, bounce), the path tracer's draw), every
+    dimension at once."""
+    idx = gray_code((int(frame) + 1) & M32)
+    bits = (idx >> np.arange(32, dtype=np.uint32)) & np.uint32(1)
+    v = np.bitwise_xor.reduce(
+        np.where(bits == 1, SOBOL_V[:2 * depth], np.uint32(0)), axis=1)
+    return (v.astype(np.float32) * np.float32(1.0 / 0xFFFFFFFF)).reshape(depth, 2)
+
+
+class FrameKeys(NamedTuple):
+    """What a frame's sample streams take from its index: pixel_seed's term
+    (int, or an int64 device scalar) and the Sobol point of each bounce
+    ((depth, 2) float32, numpy or a device tensor)."""
+
+    seed_term: int | Tensor
+    sobol: np.ndarray | Tensor
+
+
+def frame_keys(frame: int, depth: int) -> FrameKeys:
+    """A frame's keys as host values."""
+    return FrameKeys(seed_term(frame), sobol_points(frame, depth))
+
+
 def cranley_patterson_offsets(px: Tensor, py: Tensor) -> tuple[Tensor, Tensor]:
     """Per-pixel CPR offsets: a 2-draw Wang stream seeded by
     (px*1973 + py*9277 + 59*26699) | 1."""
@@ -112,11 +155,13 @@ def cranley_patterson_offsets(px: Tensor, py: Tensor) -> tuple[Tensor, Tensor]:
     return u, v
 
 
-def cranley_patterson_rotate(p: np.ndarray, off_u: Tensor, off_v: Tensor
+def cranley_patterson_rotate(p: np.ndarray | Tensor, off_u: Tensor, off_v: Tensor
                              ) -> tuple[Tensor, Tensor]:
-    """Rotate a 2D point by per-pixel offsets, wrapping to [0, 1)."""
-    x = off_u + float(p[0])
-    y = off_v + float(p[1])
+    """Rotate a 2D point by per-pixel offsets, wrapping to [0, 1). p: a
+    float32 pair on the host, or on the device (a staged frame's): either
+    way a float32 add of the same value."""
+    x = off_u + p[0]
+    y = off_v + p[1]
     x = torch.where(x > 1.0, x - 1.0, x)
     x = torch.where(x < 0.0, x + 1.0, x)
     y = torch.where(y > 1.0, y - 1.0, y)

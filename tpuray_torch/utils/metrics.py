@@ -16,7 +16,10 @@ tpuray/utils/metrics.py).
   profiler records: lanes (its primary rays), shaded_lanes (the lanes its
   bounce loop ran on), residual (whether compaction's residual pass ran),
   coverage (its share of primary hits, the device scalar render_frame
-  makes), frame_idx. frame_records() returns the last RECORDS frames'.
+  makes), frame_idx, pt_graph (1 when its path tracer's output came from
+  replays of CUDA graphs captured before it, integrator/path_graphs.py)
+  and pt_graph_captures (the graphs captured in it). frame_records()
+  returns the last RECORDS frames'.
 - profile_trace(log_dir): a torch.profiler session around a block, written
   as a Chrome trace (the CLI's render --trace).
 
@@ -114,7 +117,7 @@ class _FrameSpan:
         global _open
         self._outer = _open
         _open = dict(frame_idx=None, lanes=0, shaded_lanes=0, residual=False,
-                     coverage=None)
+                     coverage=None, pt_graph=0, pt_graph_captures=0)
         self._op.__enter__()
         return self
 
