@@ -1,4 +1,4 @@
-"""The closed-loop clients of the two traffic kinds. One user: each frame
+"""The closed-loop clients of the traffic kinds. One user: each frame
 or step is issued after the one before has completed on the device.
 
 - "orbit": a Renderer (tpuray_torch.render.renderer.Renderer.step) on an
@@ -9,6 +9,9 @@ or step is issued after the one before has completed on the device.
   material's base_color set to x * 0.4 + 0.3, Adam on every material and
   light leaf), a fixed camera at the seed's yaw; a step ends when the
   optimizer's update is done.
+- "orbit_sharded" (sharded.py): the orbit, each frame split by rows over
+  traffic["ranks"] processes, one card each; a frame ends when rank 0
+  holds the full final image.
 
 Each client takes its inputs from the harness (scenes.py) and hands the
 check (check.py) what the timed path produced, copied to host memory as
@@ -28,6 +31,7 @@ from portbench.reference import camera as rcam
 from portbench.reference import config as rconfig
 from portbench.reference.host import material_table_arrays
 from portbench.reference.shade import MATERIAL_FIELDS
+from portbench.sharded import OrbitSharded
 
 
 def sync(device) -> None:
@@ -281,5 +285,5 @@ class Train:
         return out
 
 
-CLIENTS = {"orbit": Orbit, "train": Train}
+CLIENTS = {"orbit": Orbit, "train": Train, "orbit_sharded": OrbitSharded}
 

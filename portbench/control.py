@@ -70,8 +70,8 @@ def readings(name: str, seed: int, seconds: float, device: str = "cuda",
     ref_scene = scenes.reference_scene(conf, drv.made, device)
     cfg = clients.ref_cfg(drv.cfg)
     out = dict(workload=name, seed=seed, units=n, program=program)
-    if traffic["kind"] == "orbit":
-        lim = spec.limits(name, "orbit")
+    if traffic["kind"] in ("orbit", "orbit_sharded"):
+        lim = spec.limits(name, traffic["kind"])
         ctl = []
         for s in samples:
             d = check.record_on(s, device)

@@ -12,7 +12,7 @@ import time
 
 import torch
 
-from portbench import check, clients, context, spec, stats, traceread
+from portbench import check, clients, context, sharded, spec, stats, traceread
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "tpuray")
 GIB = float(1 << 30)
@@ -65,7 +65,10 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device="cuda",
         if now - start - paused >= seconds:
             break
     window_s = last - start - paused
-    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    if hasattr(drv, "memory_peak"):  # a client over ranks: the largest rank's
+        peak = drv.memory_peak()
+    else:
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
     smi_after = context.smi() if cuda else []
     bad_mods = forbidden_modules()
     if bad_mods:
@@ -104,7 +107,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device="cuda",
     result["device"] = dict(
         platform="gpu" if cuda else "cpu",
         kind=torch.cuda.get_device_name() if cuda else "cpu",
-        count=1, memory_peak_bytes=peak)
+        count=getattr(drv, "chips", 1), memory_peak_bytes=peak)
     if trace:
         result["device"].update(trace_info)
     quarters = [times[len(times) * q // 4:len(times) * (q + 1) // 4] for q in range(4)]
@@ -149,6 +152,9 @@ def check_numbers(name: str, drv, traffic: dict, samples, device) -> dict:
     if traffic["kind"] == "orbit":
         lim = spec.limits(name, traffic["kind"])
         return check.orbit_numbers(ref_scene, cfg, samples, lim["rtol"], lim["atol"], device)
+    if traffic["kind"] == "orbit_sharded":
+        lim = spec.limits(name, traffic["kind"])
+        return sharded.check_numbers(ref_scene, cfg, samples, lim["rtol"], lim["atol"], device)
     cam = {k: torch.as_tensor(v, device=device) for k, v in drv.arrays.items()}
     with torch.no_grad():
         paths = rt.render_paths(ref_scene, cam, cfg, 0)

@@ -1,6 +1,6 @@
 """Device milliseconds a frame of every device operation that is not one
-of the program's hand-written kernels: the shading, G-buffer and
-denoiser glue's PyTorch operations."""
+of the program's hand-written kernels nor NCCL's: the shading, G-buffer
+and denoiser glue's PyTorch operations."""
 
 
 def read(ctx):

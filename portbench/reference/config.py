@@ -148,3 +148,6 @@ class RenderConfig:
                                       f"fast_reproject={self.fast_reproject}")
         if self.reference_quirks:
             raise NotImplementedError("the reference has no reference_quirks")
+        if self.integrator != "nee":
+            raise NotImplementedError("the reference integrates NEE only: "
+                                      f"integrator={self.integrator!r}")

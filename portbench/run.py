@@ -1,4 +1,5 @@
-"""Run one cell of the benchmark once, on the card this process is given.
+"""Run one cell of the benchmark once, on the cards this process is given
+(a cell on four chips runs this process as rank 0 of four: sharded.py).
 
     python3 -m portbench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 

@@ -20,14 +20,16 @@ from portbench.spec import ROOT
 WORK_DIR = ROOT / "build" / "portbench"
 
 
-def inputs(conf: dict) -> dict:
-    """What the harness makes for both sides."""
+def inputs(conf: dict, write: bool = True) -> dict:
+    """What the harness makes for both sides. write=False takes the OBJ
+    file that another process of the run has written."""
     spec = conf["scene"]
     out = dict(obj_path=None, textures=None, env=procedural_room_envmap(spec["env_width"]))
     if spec["kind"] == "obj_file":
-        WORK_DIR.mkdir(parents=True, exist_ok=True)
         out["obj_path"] = str(WORK_DIR / f"{conf['name']}.obj")
-        ref_scene.write_test_scene_obj(out["obj_path"], spec["subdiv"])
+        if write:
+            WORK_DIR.mkdir(parents=True, exist_ok=True)
+            ref_scene.write_test_scene_obj(out["obj_path"], spec["subdiv"])
         out["textures"] = ref_scene.procedural_texture_layers(spec["texture_res"])
     return out
 

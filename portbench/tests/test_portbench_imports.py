@@ -24,7 +24,8 @@ def test_harness_chain_loads_no_jax():
         "from portbench import spec\n"
         "[spec.reader(m['name']) for m in spec.benchmark()['per_layer']]\n"
         "import tpuray_torch.render.renderer, tpuray_torch.train.optimize\n"
-        "import tpuray_torch.scene.builder, tpuray_torch.scene.procedural")
+        "import tpuray_torch.scene.builder, tpuray_torch.scene.procedural\n"
+        "import portbench.sharded, tpuray_torch.dist.frame, tpuray_torch.dist.multihost")
     assert not mods & FORBIDDEN, mods & FORBIDDEN
     assert "tpuray_torch" in mods
 

@@ -50,7 +50,10 @@ def test_benchmark_json_contract(held):
     assert len(pairs) == len(b["workloads"])
     for w in b["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1 and 1 <= len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and 1 <= len(w["why"]) <= 200
+    # a quarter of the cells, rounded down, may take four chips; one always may
+    four = [w["name"] for w in b["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(cells) // 4), four
     e2e = {m["name"]: m for m in b["end_to_end"]}
     assert "setup_s" in e2e and e2e["setup_s"]["bound"] <= 0.25
     for m in b["end_to_end"]:
@@ -76,6 +79,7 @@ def test_files_found_by_name(cell):
     conf, traffic = spec.config(w["config"]), spec.traffic(w["traffic"])
     assert conf["name"] == w["config"]
     assert traffic["kind"] in clients.CLIENTS
+    assert traffic.get("ranks", 1) == w["chips"]  # a rank a chip
     lim = spec.limits(cell, traffic["kind"])
     assert lim["limits"]
     for m in spec.metrics_of(cell, b, "per_layer"):

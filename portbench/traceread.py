@@ -28,6 +28,12 @@ def which(name: str) -> str | None:
     return next((k for k, v in HAND_WRITTEN.items() if v in name), None)
 
 
+def is_nccl(name: str) -> bool:
+    """A kernel of NCCL's (ncclDevKernel_*, ncclKernel_*): a collective or a
+    point-to-point transfer between ranks."""
+    return name.startswith(("ncclDevKernel", "ncclKernel"))
+
+
 def _lost_launches(prof) -> list[int]:
     raw = prof.profiler.kineto_results.events()
     recorded = {e.correlation_id() for e in raw
@@ -68,10 +74,13 @@ class Trace:
 
     @staticmethod
     def of(prof) -> "Trace":
+        """The session's operations; a device-side annotation (the process
+        group's "nccl:<collective>" range around its kernels) is no device
+        operation."""
         dev, host = [], []
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
-                if SPIN not in e.name:
+                if SPIN not in e.name and not getattr(e, "is_user_annotation", False):
                     dev.append((e.name, e.time_range.start, e.time_range.end))
             else:
                 host.append((e.name, e.time_range.start, e.time_range.end))
@@ -109,7 +118,10 @@ class Trace:
         return sum(e - s for name, s, e in self.device_ops if which(name) in kernels)
 
     def us_not_hand_written(self) -> float:
-        return sum(e - s for name, s, e in self.device_ops if which(name) is None)
+        """Device us of every operation but the hand-written kernels and
+        NCCL's."""
+        return sum(e - s for name, s, e in self.device_ops
+                   if which(name) is None and not is_nccl(name))
 
     def idle_gaps(self, top: int = 10) -> list[list]:
         """The longest gaps between device operations, each named by the
