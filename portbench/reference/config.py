@@ -148,6 +148,6 @@ class RenderConfig:
                                       f"fast_reproject={self.fast_reproject}")
         if self.reference_quirks:
             raise NotImplementedError("the reference has no reference_quirks")
-        if self.integrator != "nee":
-            raise NotImplementedError("the reference integrates NEE only: "
+        if self.integrator not in ("nee", "mis"):
+            raise NotImplementedError("the reference integrates NEE and MIS only: "
                                       f"integrator={self.integrator!r}")

@@ -259,6 +259,6 @@ def build(spec: dict, obj_path: str | None, textures: dict | None,
                    for k in MATERIAL_FIELDS},
         lights={"position": torch.as_tensor(lights, device=device),
                 "radiance": torch.as_tensor(radiance, device=device)},
-        env_image=image, env_nee_t=envmap.pack_env_nee_table(image, cache),
+        env_image=image, env_nee_t=envmap.pack_env_nee_table(image, cache), env_cache=cache,
         tex_q=tex_q, tex_normal=tex_normal)
 

@@ -36,8 +36,9 @@ MATERIAL_FIELDS = ("emissive", "base_color", "subsurface", "metallic", "specular
 class RefScene:
     """The reference's scene on a device: triangles in file order with their
     attributes, the cull (trace.Clusters), materials and lights as dicts of
-    tensors (the trainable leaves), the env map with its cache and NEE
-    table, and the texture stack's bf16 combined map."""
+    tensors (the trainable leaves), the env map with its NEE table and its
+    inverse-CDF cache (MIS samples and weighs the env map by it), and the
+    texture stack's bf16 combined map."""
 
     tri: Tensor          # (T, 26) [p0 p1 p2 n0 n1 n2 uv0 uv1 uv2 mat obj]
     clusters: Clusters
@@ -45,6 +46,7 @@ class RefScene:
     lights: dict         # "position", "radiance" -> (L, 3)
     env_image: Tensor
     env_nee_t: Tensor
+    env_cache: Tensor
     tex_q: Tensor | None
     tex_normal: Tensor | None
 
@@ -161,6 +163,13 @@ def resolve_hit(scene: RefScene, mat_rows: Tensor, orig: Tensor, d: Tensor, t: T
     return Hit(valid=valid, point=point, normal=ns, mat=mat)
 
 
+def resolve_aniso(scene: RefScene, cfg: RenderConfig) -> bool:
+    """cfg.enable_aniso with "auto" resolved on the materials."""
+    if cfg.enable_aniso == "auto":
+        return bool((scene.materials["anisotropic"] > 0.0).any())
+    return bool(cfg.enable_aniso)
+
+
 class PathOut(NamedTuple):
     color: Tensor     # (N, 3) clamped 1-spp radiance
     emission: Tensor  # (N, 3) first-hit emissive
@@ -172,17 +181,22 @@ class PathOut(NamedTuple):
 
 def trace_paths(scene: RefScene, eye: Tensor, d: Tensor, px: Tensor, py: Tensor,
                 frame: int, cfg: RenderConfig) -> PathOut:
-    """One NEE sample per ray from the shared origin `eye` (3,)."""
-    if cfg.integrator != "nee" or cfg.tile_coherent_sampling:
-        raise NotImplementedError("the reference integrates cfg.integrator='nee' per pixel")
+    """One sample per ray from the shared origin `eye` (3,): NEE here, MIS
+    in mis.py."""
+    if cfg.tile_coherent_sampling:
+        raise NotImplementedError("the reference samples per pixel")
+    if cfg.integrator == "mis":
+        from portbench.reference.mis import trace_paths_mis
+        return trace_paths_mis(scene, eye, d, px, py, frame, cfg)
+    if cfg.integrator != "nee":
+        raise NotImplementedError(f"integrator={cfg.integrator!r}")
     n = d.shape[0]
     dev = d.device
     orig = eye[None].expand(n, 3)
     mat_rows = material_rows(scene.materials)
     light_rows = torch.cat([scene.lights["position"], scene.lights["radiance"]], -1)
     n_lights = light_rows.shape[0]
-    aniso = (bool((scene.materials["anisotropic"] > 0.0).any())
-             if cfg.enable_aniso == "auto" else bool(cfg.enable_aniso))
+    aniso = resolve_aniso(scene, cfg)
     t, idx = trace(scene.clusters, orig, d, INF)
 
     seed = rng.pixel_seed(px, py, frame)

@@ -32,6 +32,6 @@ def test_harness_chain_loads_no_jax():
 
 def test_reference_loads_no_program():
     mods = top_levels(
-        "import portbench.reference.frame, portbench.reference.train\n"
+        "import portbench.reference.frame, portbench.reference.train, portbench.reference.mis\n"
         "import portbench.reference.scene, portbench.reference.trace")
     assert not mods & (FORBIDDEN | {"tpuray_torch"}), mods & (FORBIDDEN | {"tpuray_torch"})

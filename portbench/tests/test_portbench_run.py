@@ -38,7 +38,8 @@ def test_result_line(small_traffic):
         assert set(v) == {"value", "limit"} and v["value"] <= v["limit"]
 
 
-@pytest.mark.parametrize("cell", ["orbit800.file20k", "orbit800.forest131k", "train800.test20k"])
+@pytest.mark.parametrize("cell", ["orbit800.file20k", "orbit800.forest131k", "train800.test20k",
+                                  "orbit800.mis.file20k"])
 def test_program_matches_reference(small_traffic, cell):
     result, _ = run(cell)
     assert result["correct"], result["checks"]
@@ -79,10 +80,13 @@ def _answer_altered(monkeypatch):
     monkeypatch.setattr(renderer.Renderer, "step", altered)
 
 
-@pytest.mark.parametrize("fault", [_state_unchanged, _half_the_rays, _answer_altered])
-def test_frame_faults_fail(small_traffic, monkeypatch, fault):
+@pytest.mark.parametrize("cell, fault", [
+    ("orbit800.file20k", _state_unchanged), ("orbit800.file20k", _half_the_rays),
+    ("orbit800.file20k", _answer_altered), ("orbit800.mis.file20k", _half_the_rays)],
+    ids=["fault0", "fault1", "fault2", "mis-half_the_rays"])
+def test_frame_faults_fail(small_traffic, monkeypatch, cell, fault):
     fault(monkeypatch)
-    result, _ = run("orbit800.file20k")
+    result, _ = run(cell)
     assert not result["correct"], result["checks"]
 
 
@@ -163,7 +167,7 @@ def test_window_step_faults_fail(small_traffic, monkeypatch, fault):
     assert not result["correct"], checks
 
 
-@pytest.mark.parametrize("cell", ["orbit800.file20k", "train800.test20k"])
+@pytest.mark.parametrize("cell", ["orbit800.file20k", "train800.test20k", "orbit800.mis.file20k"])
 def test_control_fails(small_traffic, cell):
     b = bench_for(cell)
     r = control.readings(cell, SEED, 0.3, device="cpu", traffic_override=SMALL, bench=b)

@@ -149,8 +149,14 @@ def test_child_exit_ends_the_run(fault):
     assert time.monotonic() - t0 < 120
 
 
-def test_reference_refuses_mis():
-    with pytest.raises(NotImplementedError):
-        rconfig.RenderConfig(integrator="mis")
-    assert rconfig.RenderConfig(integrator="nee").integrator == "nee"
+def test_reference_integrators():
+    """The reference integrates NEE and MIS, and still refuses what it does
+    not compute: another integrator, the tiled history read,
+    fast_reproject and the program's quirks."""
+    for integrator in ("nee", "mis"):
+        assert rconfig.RenderConfig(integrator=integrator).integrator == integrator
+    for bad in (dict(integrator="path"), dict(reproject_gather="tiled"),
+                dict(fast_reproject=True), dict(reference_quirks=True)):
+        with pytest.raises(NotImplementedError):
+            rconfig.RenderConfig(**bad)
 
