@@ -49,6 +49,14 @@ instructions in its SASS (cuobjdump -sass), then:
      and 4 shards (tpuray's sharded read: 40 x 160 tiles from the first
      row of the shard extended by the halo 32, as svgf_pipeline runs it)
      against its plain version (history_len equal) and its ms on one shard;
+ 4c. the TAA kernel (kernels/taa.py) on the TAA inputs of phase 3's frame
+     (its modulated image, the TAA history before it, its velocity and
+     depth): the whole image moving and with the camera still, and the row
+     windows of 2 and 4 shards emulated as in 4b (each shard's rows
+     extended by the halo 32, as render_frame_sharded runs TAA), each one
+     launch a call and bit-equal to the plain taa (the shards also to the
+     whole-image kernel, since the history taps lie inside the halo);
+     the kernel's device time beside the plain version's and its bound;
   5. slice 2's path: Renderer under the slice config (SVGF and TAA on, the
      default view), 2 warm-up frames, then 16 moving-camera frames with the
      launch counts set to 0 just before and read just after; checks the
@@ -153,7 +161,7 @@ instructions in its SASS (cuobjdump -sass), then:
      frame_idx back at 0), sigma_l=2.5 (in the config the frames render
      with), a rotate and a view switch; every frame's launches checked
      exactly (K1 1, K2 2 a bounce and again with the residual pass, K4 1,
-     K5 an iteration; no frame takes the static-camera branch) from a log
+     K5 an iteration, TAA 1; no frame takes the static-camera branch) from a log
      of the Renderer's render_frame calls; the 30th quiet frame's final
      bit-equal to a direct Renderer's after as many steps; the same frames
      replayed through the plain versions (plain tracer, pallas_denoise
@@ -188,15 +196,16 @@ instructions in its SASS (cuobjdump -sass), then:
      every metric of bench.py present without an error, every gradient
      check passed, bench_total_s last, and each metric's launches as its
      runs must make them (K1 121 for the headline, K3 25, K6 25 for each
-     forest, the SVGF chain K4 16 and K5 80; the frames K1, K2, K4 and K5,
-     the gradient checks K1 and K2); then the bench's own inputs rebuilt
+     forest, the SVGF chain K4 16, K5 80 and TAA 16; the frames K1, K2,
+     K4, K5 and TAA, the gradient checks K1 and K2); then the bench's own inputs rebuilt
      from its functions: K1 on its primaries, K3 on its incoherent rays
      and K6 on its primaries through phases 8's and 9's 131k and 524k
      forests, each against its plain version and timed as device work
      beside the bench's rate a call (host clock); on the 1080p chain's
      random inputs K4 and each K5 iteration against their plain versions
-     and the chain against the plain denoiser, its device time beside its
-     ms a call, each stage's device time (K4, K5, modulate, TAA), and one
+     and the chain against the plain denoiser, the TAA kernel on the
+     chain's own TAA inputs bit-equal to the plain taa (as in 4c), the
+     chain's device time beside its ms a call, each stage's device time (K4, K5, modulate, TAA), and one
      call under torch.profiler queued ahead of the device (the kernels' own
      time and span against the events' span, the gaps between kernels,
      memcpy/memset and host syncs). Phase 14 also holds the K1 and K2
@@ -207,7 +216,7 @@ JSON line (launches: the sum over every path run above, each run counted
 from 0 just before it, the sharded paths of phase 18, the viewer's and
 train's of phases 19 and 20, the gradient checks of phase 14 and the
 bench's runs of phase 22 included; errors,
-times and bounds from phases 1-4, 8, 11 and 13), the card's name and power limit, then {"ok": true, "device": {...}}.
+times and bounds from phases 1-4, 4c, 8, 11 and 13), the card's name and power limit, then {"ok": true, "device": {...}}.
 Needs no network and no jax. Exits non-zero without a CUDA device.
 """
 import dataclasses
@@ -240,6 +249,7 @@ from tpuray_torch.kernels import atrous as ka
 from tpuray_torch.kernels import build
 from tpuray_torch.kernels import gather as kg
 from tpuray_torch.kernels import reproject as kr
+from tpuray_torch.kernels import taa as ktaa
 from tpuray_torch.kernels import trace as kt
 from tpuray_torch.kernels import trace_chunked as ktc
 from tpuray_torch.kernels import launches, reset_launches
@@ -317,6 +327,10 @@ K4_FALLBACK_OPS = 2156  # + 7x7 fallback, 49 taps x 44, where history < 4
 # + 41 (own luminance 5 (each point's taken once), pre-blur 17, phi_l 5,
 # phi_depth 2, reciprocals 7, outputs 5)
 K5_PIXEL_OPS = 24 * 35 + 41
+# TAA, a non-sky pixel: closest velocity 9 compares, uv 10, 4 history taps
+# 30, the history's tonemap and YCoCg-R 12, the 3x3 moments 81, clip_aabb
+# 36, two untonemaps 28, the blend 10, its own tile point's transform 12
+TAA_PIXEL_OPS = 228
 
 
 class ChainOut(NamedTuple):  # K5's outputs, for check_fields
@@ -649,6 +663,75 @@ def phase_row_window(k4_in: dict, cfg) -> None:
         + f"; sum {sum(a for a, _ in parts):.4f} / {sum(b for _, b in parts):.4f}")
 
 
+def check_taa(name, args, static: bool = False) -> tuple:
+    """The TAA kernel on args (cur_color, prev_color, velocity, linear_z,
+    frame): one launch, bit-equal to the plain taa -> (kernel device ms,
+    plain ms of one call, the plain version's device ms, bound)."""
+    reset_launches()
+    got = ktaa.taa(*args, static_camera=static)
+    run = launches()
+    want, plain_ms = once_ms(lambda: taa(*args, static_camera=static))
+    if run["taa"] != 1:
+        raise AssertionError(f"TAA {name}: launches {run}")
+    if not torch.equal(got, want):
+        d = (got - want).abs().amax(-1)
+        raise AssertionError(f"TAA {name}: {int((d != 0).sum())} of {d.numel()} pixels "
+                             f"differ from the plain taa, the largest by {float(d.max()):.3g}")
+    ms = kernel_ms(lambda: ktaa.taa(*args, static_camera=static))
+    # one call a reading: the plain taa's ~550 launches overflow the launch queue
+    plain_dev = kernel_ms(lambda: taa(*args, static_camera=static), 1)
+    b = bound(nbytes(*args[:4], got), int((args[3] != 1.0).sum()) * TAA_PIXEL_OPS)
+    log(f"TAA {name}: {tuple(got.shape[:2])}, frame {args[4]}, one launch, bit-equal to "
+        f"the plain taa; kernel {ms:.4f} ms (device time, mean of {KERNEL_REPS}), plain "
+        f"{plain_dev:.4f} device ms "
+        f"({plain_ms:.3f} ms a synchronised call), bound {b[0]:.4f} ms by {b[1]} (the "
+        f"kernel at {ms / b[0]:.2f}x it)")
+    return ms, plain_ms, plain_dev, b
+
+
+def phase_taa(out, state) -> tuple:
+    """4c. The TAA kernel on the TAA inputs of phase 3's frame (out: its
+    outputs, state: the state it started from): the frame's own TAA output
+    recomputed, the whole image moving and still, then the row windows of
+    ROW_SHARDS shards emulated as in 4b, each shard's rows extended by the
+    halo (render_frame_sharded's TAA reach, max(halo, 2)) -> check_taa's
+    readings of the moving whole image."""
+    args = (out.svgf.modulated, state.taa_color, out.gbuffer.velocity,
+            out.gbuffer.linear_z, state.frame_idx)
+    whole = ktaa.taa(*args)
+    if not torch.equal(whole, out.svgf.taa):
+        raise AssertionError("TAA: the kernel on the frame's TAA inputs is not its output")
+    result = check_taa(f"{W}x{H} (frame {state.frame_idx})", args)
+    check_taa(f"{W}x{H} (frame {state.frame_idx}), camera still", args, static=True)
+    # the farthest row a pixel's history taps read
+    reach = float(args[2][..., 1].abs().max()) * H + 2.0
+    frame, k = args[4], max(ROW_HALO, 2)
+    for n in ROW_SHARDS:
+        reset_launches()
+        (got,) = sharded_stage(lambda s, win: (ktaa.taa(*s, frame, row_window=win),),
+                               list(args[:4]), n, k)
+        run = launches()
+        (ref,) = sharded_stage(lambda s, win: (taa(*s, frame, row_window=win),),
+                               list(args[:4]), n, k)
+        if run["taa"] != n or not torch.equal(got, ref):
+            d = (got - ref).abs().amax(-1)
+            raise AssertionError(f"TAA, {n} shards: launches {run}; {int((d != 0).sum())} "
+                                 f"pixels differ from the plain taa under the same windows")
+        same = torch.equal(got, whole)
+        row0 = H // n - k
+        one = [slab(x, row0, H // n + 2 * k) for x in args[:4]]
+        ms_win = kernel_ms(lambda: ktaa.taa(*one, frame, row_window=(row0, H)))
+        ms_own = kernel_ms(lambda: ktaa.taa(*one, frame))
+        log(f"TAA, {n} shards of {H // n} rows extended by {k} (history taps within "
+            f"{reach:.2f} rows): launches {run}; bit-equal to the plain taa under the same "
+            f"windows; the whole image's kernel output {'equal' if same else 'differs'}; "
+            f"one shard's rows {ms_win:.4f} ms with the window, {ms_own:.4f} ms without")
+        if reach < k and not same:
+            raise AssertionError(f"TAA, {n} shards: differs from the whole image's though "
+                                 f"every history tap lies inside the halo")
+    return result
+
+
 def check_frame_walks(name, scene, cfg, tables, rays) -> None:
     """Every K1 and K2 call of one frame of trace_paths on rays (as
     recorded_calls gives them, compaction as cfg says) against its plain
@@ -830,7 +913,7 @@ def timed_frames(r, cam, frames: int) -> tuple[list, dict, object]:
 
 def add_launches(total: dict, run: dict) -> None:
     for k, n in run.items():
-        total[k] += n
+        total[k] = total.get(k, 0) + n
 
 
 def expect_launches(name, got: dict, want: dict) -> None:
@@ -1457,10 +1540,10 @@ class FrameLog:
     def expected(self, f: dict) -> dict:
         """A single-tree frame's launches on the card: K1 1, K2 a bounce
         (again with the residual pass), K4 1 (a still camera too), K5 an
-        iteration."""
+        iteration, TAA 1."""
         d = f["cfg"].max_tracing_depth
         return dict(k1=1, k2=d * (2 if f["residual"] else 1), k3=0, k4=1,
-                    k5=f["cfg"].num_atrous_iterations, k6=0, k7=0)
+                    k5=f["cfg"].num_atrous_iterations, k6=0, k7=0, taa=1)
 
 
 def http(port: int, path: str, body: dict | None = None, timeout: float = 60.0):
@@ -1807,7 +1890,7 @@ BENCH_METRICS = {
     "trace_rays_per_second": dict(k1=1 + 20 * 6),
     "trace_incoherent_rays_per_second": dict(k3=1 + 8 * 3),
     "frame_ms_moving_800px": None,
-    "svgf_chain_ms_moving_1080p": dict(k4=1 + 5 * 3, k5=5 * (1 + 5 * 3)),
+    "svgf_chain_ms_moving_1080p": dict(k4=1 + 5 * 3, k5=5 * (1 + 5 * 3), taa=1 + 5 * 3),
     **{f"gradcheck_{name}_rel_err": None for name in
        ("base_color", "specular", "sheen", "light_radiance", "light_pos_interior")},
     "gradcheck_roughness_d2_ad_sanity": None,
@@ -1931,13 +2014,16 @@ def bench_chain_against_plain(chain_ms: float) -> float:
             ka.atrous_step, out["k4"].var_illum, out["k4"].var_variance, k4_in["normal"],
             k4_in["linear_z"], k4_in["fwidth_z"], cfg)[0][0]),
         lambda: out.update(mod=modulate(out["k5"], alb, emi, gbuf.linear_z)),
-        lambda: taa(out["mod"], st.taa_color, gbuf.velocity, gbuf.linear_z, st.frame_idx)]
+        lambda: ktaa.taa(out["mod"], st.taa_color, gbuf.velocity, gbuf.linear_z,
+                         st.frame_idx)]
     held_events(stages)  # warm-up
     parts, host_ms, drained = held_events(stages)
     log(f"bench 1080p chain by stage, device ms behind a spin kernel (the host queued "
         f"them in {host_ms:.4f} ms, {'after' if drained else 'before'} the spin ended): "
         + ", ".join(f"{k} {v:.4f}" for k, v in zip(("K4", "K5 x5", "modulate", "TAA"), parts))
         + f"; sum {sum(parts):.4f}")
+    check_taa("bench 1080p", (out["mod"], st.taa_color, gbuf.velocity, gbuf.linear_z,
+                              st.frame_idx))
     del k4_in, out
     chain_profile(chain)
     return chain_dev
@@ -2049,8 +2135,9 @@ def phase_bench(k1_ms: float, k3_ms: float, forests: dict) -> dict:
                 grad_runs[k] = grad_runs.get(k, 0) + n
         elif m.startswith("frame"):  # K2 2 a frame, 4 with the residual pass
             frames = 1 + 8 * 3
-            if (set(got) != {"k1", "k2", "k4", "k5"} or got["k1"] != frames
+            if (set(got) != {"k1", "k2", "k4", "k5", "taa"} or got["k1"] != frames
                     or got["k4"] != frames or got["k5"] != 5 * frames
+                    or got["taa"] != frames
                     or not 2 * frames <= got["k2"] <= 4 * frames):
                 raise AssertionError(f"bench {m}: launches {got}")
         elif got != want:
@@ -2183,7 +2270,7 @@ def main() -> None:
     fp64 = fp64_in_sass(build.library_path())
     log("  sass: FP64 instructions per kernel " + json.dumps(fp64))
     missing = [k for k in ("trace_k1_warp", "trace_k2", "trace_k3", "trace_k6",
-                           "reproject_variance", "atrous_step", "gather_rows")
+                           "reproject_variance", "atrous_step", "gather_rows", "taa_kernel")
                if not any(name.split("<")[0] == k for name in ptxas)
                or not any(name.split("<")[0] == k for name in fp64)]
     if missing or any(fp64.values()):
@@ -2257,7 +2344,7 @@ def main() -> None:
     phase_k2_vs_k3(tables, o2, dirs, tms, ah, got, k2_ms)
 
     # ---- 3. K4 on the denoiser's inputs of the 5th moving frame
-    _, _, _, _, k4_in = moving_renderer(scene, SLICE, 5)
+    _, _, out5, state5, k4_in = moving_renderer(scene, SLICE, 5)
     k4, k4_ref, shares, k4_err, k4_plain_ms = check_k4("K4 (frame 5)", SLICE, k4_in)
     if shares["reprojected"] <= 0.0 or shares["fallback"] <= 0.0:
         raise AssertionError("K4 inputs do not exercise both the reprojection and the fallback")
@@ -2294,6 +2381,11 @@ def main() -> None:
     # ---- 4b. K4 and K5 with a sharded frame's row window
     phase_row_window(k4_in, SLICE)
 
+    # ---- 4c. TAA on phase 3's frame: whole image, camera still, row windows
+    taa_ms, taa_plain_ms, _, taa_bound = phase_taa(out5, state5)
+    del out5, state5
+    log(f"TAA: shared memory a block {smem('taa_kernel')} bytes")
+
     # ---- 5. the main path: moving-camera frames with SVGF + TAA
     r = Renderer(scene, SLICE)
     cam = OrbitCamera(width=W, height=H)
@@ -2316,7 +2408,7 @@ def main() -> None:
         f"max {max(frame_ms):.3f} ms, min {min(frame_ms):.3f} ms, "
         f"coverage {float(out.coverage):.4f}, launches {main_launches}")
     want = dict(k1=TIMED_FRAMES, k2=2 * TIMED_FRAMES, k4=TIMED_FRAMES,
-                k5=SLICE.num_atrous_iterations * TIMED_FRAMES)
+                k5=SLICE.num_atrous_iterations * TIMED_FRAMES, taa=TIMED_FRAMES)
     expect_launches("SVGF frames", main_launches, dict(want, k3=0, k6=0))
     check_image(out, svgf_on=True)
     if not hist_max[-1] > hist_max[0] > 1.0:
@@ -2574,6 +2666,8 @@ def main() -> None:
         entry("K7 onehot_gather", "tpuray_torch/csrc/gather.cu",
               "tpuray/kernels/gather_pallas.py:56", "k7", 0.0, k7_ms, k7_plain_ms,
               k7_bound, library_ms=k7_lib_ms),
+        entry("TAA taa_kernel", "tpuray_torch/csrc/taa.cu", None, "taa", 0.0, taa_ms,
+              taa_plain_ms, taa_bound),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

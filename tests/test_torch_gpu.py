@@ -11,7 +11,9 @@ the tile-windowed and the shifted-rescue reads, whole image and row
 window), K6
 (chunked forests of 8 and 128 chunks), K7 (the one-hot
 hi/lo gather at each compile-time width and the run-time one, with ragged
-N, a misaligned table and indices outside the table), frames of every path through them, and a train step's
+N, a misaligned table and indices outside the table), the TAA kernel (whole
+image, row window, static camera, frame 0, sky, and each Renderer frame's
+TAA), frames of every path through them, and a train step's
 gradients through the traversal kernels against the plain tracer's.
 
 Every test here is marked `gpu` and skips without a CUDA device. This file
@@ -27,7 +29,8 @@ exact. K4 and K5 (the denoiser) repeat their plain versions' op order too:
 history_len exact, every other output within rtol 1e-5 / atol 1e-6 (exp
 and pow may round their last bit differently); frames through the kernels
 within tests/test_dist_frame.py's image tolerance of the plain frame.
-K7 bit-exact. Train-step gradients within 1e-4 of each field's largest
+K7 and the TAA kernel bit-exact (it repeats PyTorch's ops on the card,
+its division by a Python number as a product with the reciprocal too). Train-step gradients within 1e-4 of each field's largest
 |gradient| (t and idx are bit-exact, but the backward of table[idx] on
 CUDA sums with atomics, in an order that changes from run to run)."""
 import dataclasses
@@ -37,11 +40,13 @@ import pytest
 import torch
 
 from tpuray_torch.denoise.atrous import atrous_iteration
+from tpuray_torch.denoise.taa import taa as plain_taa
 from tpuray_torch.integrator.path_tracer import (
     KERNELS, PLAIN, _compact_budget, pack_traversal)
 from tpuray_torch.kernels import atrous as ka
 from tpuray_torch.kernels import gather as kg
 from tpuray_torch.kernels import reproject as kr
+from tpuray_torch.kernels import taa as ktaa
 from tpuray_torch.kernels import trace as kt
 from tpuray_torch.kernels import trace_chunked as ktc
 from tpuray_torch.render.renderer import Renderer, camera_rays
@@ -52,6 +57,7 @@ from tpuray_torch.train import optimize
 from tpuray_torch.traversal_times import k3_walks
 
 from tests.test_torch_denoise_tiles import _k4_inputs, _k5_inputs, _slab
+from tests.test_torch_taa import taa_inputs
 
 pytestmark = pytest.mark.gpu
 
@@ -619,6 +625,91 @@ def test_k4_sigma_n_matches_plain(cuda_scene, sigma_n):
     assert torch.equal(got.history_len, ref.history_len)
     for f in got._fields:
         _assert_close(getattr(got, f), getattr(ref, f), f)
+
+
+def _assert_bits(got, ref, name):
+    """got equals ref bit for bit; else how many pixels differ, and by how
+    much at most."""
+    if not torch.equal(got, ref):
+        d = (got - ref).abs().amax(-1)
+        raise AssertionError(f"{name}: {int((d != 0).sum())} of {d.numel()} pixels differ, "
+                             f"the largest by {float(d.max()):.3g}")
+
+
+@pytest.mark.parametrize("h,w,case", [
+    (800, 800, "moving"), (1080, 1920, "moving"), (37, 53, "moving"), (1, 40, "moving"),
+    (2, 2, "moving"), (800, 800, "static"), (37, 53, "static"), (64, 96, "frame0"),
+    (64, 96, "all_sky"), (64, 96, "no_sky")])
+def test_taa_kernel_matches_plain(cuda_scene, h, w, case):
+    """The TAA kernel against the plain taa, bit for bit, one launch: the
+    whole image at 800x800, 1080p and ragged sizes, the static camera,
+    frame 0 (the current colour), all sky and no sky."""
+    sky = {"all_sky": "all", "no_sky": "none"}.get(case, "band")
+    a = taa_inputs(h * w, h, w, sky=sky, device="cuda")
+    frame = 0 if case == "frame0" else 3
+    static = case == "static"
+    ktaa.reset_launches()
+    got = ktaa.taa(*a, frame, static_camera=static)
+    assert ktaa.LAUNCHES["taa"] == 1
+    ref = plain_taa(*a, frame, static_camera=static)
+    torch.cuda.synchronize()
+    _assert_bits(got, ref, f"{h}x{w} {case}")
+    # the history keeps a share where the motion is under a pixel or so:
+    # not at 1 or 2 rows or columns, where the inputs' motion is larger
+    moved = ~torch.isclose(got, a[0]).all(-1)
+    assert bool(moved.any()) == (case not in ("frame0", "all_sky") and min(h, w) > 2)
+
+
+@pytest.mark.parametrize("shard,halo,motion", [(0, 32, 40.0), (1, 32, 40.0), (3, 32, 40.0),
+                                               (1, 4, 6.0)])
+@pytest.mark.parametrize("static", [False, True])
+def test_taa_kernel_row_window_matches_plain(cuda_scene, shard, halo, motion, static):
+    """The TAA kernel on one of 4 shards of an 800-row image, 200 rows
+    extended by the halo (32: 264 rows, as the sharded frame runs it),
+    against the plain taa with the same window, bit for bit. A block of
+    rows 150-449 moves `motion` rows a frame, past the halo: shard 1's
+    first rows read their history above the extended rows and reject it.
+    At 40 rows the blend is 1 anyway (speed x 100 > 1), so the cropped rows
+    equal the whole image's kernel output; at 6 rows past a halo of 4 the
+    blend would be 0.8, so those rows differ from the whole image's."""
+    h, rows = 800, 200
+    full = taa_inputs(31, h, h, fast_rows=(150, 450, motion), device="cuda")
+    row0 = shard * rows - halo
+    s = [_slab(x, row0, rows + 2 * halo) for x in full]
+    ktaa.reset_launches()
+    got = ktaa.taa(*s, 3, static_camera=static, row_window=(row0, h))
+    assert ktaa.LAUNCHES["taa"] == 1
+    ref = plain_taa(*s, 3, static_camera=static, row_window=(row0, h))
+    whole = ktaa.taa(*full, 3, static_camera=static)
+    torch.cuda.synchronize()
+    _assert_bits(got, ref, f"shard {shard}, halo {halo}")
+    same = torch.equal(got[halo:-halo], whole[shard * rows:(shard + 1) * rows])
+    assert same == (static or halo == 32 or shard != 1)
+
+
+def test_svgf_frames_taa_kernel_matches_plain(cuda_scene):
+    """Renderer frames (RenderConfig() but its size: compaction, CUDA
+    graphs): each frame's TAA output against the plain taa on the same
+    inputs (the frame's modulated image, the TAA history before it, its
+    velocity and depth), bit for bit, frame 0 included; one launch a frame
+    under pallas_denoise, none under the tile-windowed read or the plain
+    denoiser."""
+    scene, _ = cuda_scene
+    cam = OrbitCamera(width=128, height=96, yaw_deg=20.0)
+    for kw, per_frame in (({}, 1), ({"reproject_gather": "tiled"}, 0),
+                          ({"pallas_denoise": False}, 0)):
+        r = Renderer(scene, RenderConfig(width=128, height=96, **kw))
+        ktaa.reset_launches()
+        for i in range(5):
+            prev, frame = r.state.taa_color.clone(), r.state.frame_idx
+            out = r.step(cam.snapshot())
+            assert ktaa.LAUNCHES["taa"] == per_frame * (i + 1), kw
+            ref = plain_taa(out.svgf.modulated, prev, out.gbuffer.velocity,
+                            out.gbuffer.linear_z, frame,
+                            tiled_fetch="reproject_gather" in kw)
+            torch.cuda.synchronize()
+            _assert_bits(out.svgf.taa, ref, f"{kw} frame {frame}")
+            cam.rotate(0.5, 0.0)
 
 
 def test_svgf_frames_kernels_match_plain(cuda_scene):

@@ -9,6 +9,10 @@ cfg.pallas_denoise keeps the JAX package's meaning: True routes the moving
 camera's reproject + variance through K4 and each a-trous iteration
 through K5 (kernels/reproject.py, kernels/atrous.py; on CPU tensors those
 wrappers run their plain versions), False takes the plain PyTorch stages.
+Under it TAA, which has no TPU kernel, also runs as one CUDA kernel
+(kernels/taa.py), except under the tile-windowed read, whose fetch the
+kernel does not compute: the plain taa runs there and under
+pallas_denoise=False, the configuration that differentiates.
 The static-camera branch reprojects with the plain static specialisation
 on CPU tensors, as the JAX package does off its own device, and still
 runs K5; on the card it runs K4 at zero motion, the specialisation's
@@ -51,6 +55,7 @@ from tpuray_torch.denoise.variance import estimate_variance
 from tpuray_torch.integrator.gbuffer import GBuffer
 from tpuray_torch.kernels import atrous as katrous
 from tpuray_torch.kernels import reproject as kreproject
+from tpuray_torch.kernels import taa as ktaa
 from tpuray_torch.render.frame_state import FrameState
 from tpuray_torch.scene.config import RenderConfig
 from tpuray_torch.utils.metrics import span
@@ -192,9 +197,14 @@ def svgf_pipeline(color: Tensor, emission: Tensor, albedo: Tensor, gbuf: GBuffer
         mod = modulate(illum, albedo, emission, gbuf.linear_z)
         kt = max(k, 2)
         (mod_e,) = rows.extend(kt, mod)
-        taa_out = rows.crop(taa(mod_e, at(ext[-1], kt), at(ext[3], kt), at(e_z, kt),
-                                state.frame_idx, static_camera=static_camera,
-                                tiled_fetch=tiled, row_window=rows.window(kt)), kt)
+        taa_in = (mod_e, at(ext[-1], kt), at(ext[3], kt), at(e_z, kt), state.frame_idx)
+        if kernels and not tiled:
+            taa_out = ktaa.taa(*taa_in, static_camera=static_camera,
+                               row_window=rows.window(kt))
+        else:
+            taa_out = taa(*taa_in, static_camera=static_camera, tiled_fetch=tiled,
+                          row_window=rows.window(kt))
+        taa_out = rows.crop(taa_out, kt)
         return SVGFOutput(
             reprojected=rep.illum, reprojected_var=rep.variance,
             variance_illum=var_illum, variance_var=var_variance,

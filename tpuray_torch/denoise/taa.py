@@ -13,6 +13,11 @@ tile-windowed read (denoise/tile_gather.py) as tpuray does under
 reproject_gather="tiled" and in its sharded frame: a tap that does not
 resolve drops out with its weight, and a pixel with none rejects its
 history.
+
+This is the plain version. Under pallas_denoise on the card,
+denoise/svgf.py:svgf_pipeline runs TAA as one CUDA kernel
+(kernels/taa.py, csrc/taa.cu), whose output equals taa's bit for bit;
+under the tile-windowed read it runs this function.
 """
 from __future__ import annotations
 

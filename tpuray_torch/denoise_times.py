@@ -1,18 +1,20 @@
-"""Device times of the denoiser kernels K4 and K5 on recorded frame inputs,
-to compare two versions of the kernels in one call.
+"""Device times of the denoiser kernels K4, K5 and TAA on recorded frame
+inputs, to compare two versions of the kernels in one call.
 
     python3 tpuray_torch/denoise_times.py [--tree DIR]
 
 --tree DIR imports tpuray_torch from DIR, a checkout of another commit
 (for example the parent, unpacked with `git archive` into the git-ignored
 build/), so the same inputs go through that version's kernels; the script
-calls only Renderer, reproject_variance_fused and K5's chain (kernels/
+calls only Renderer, reproject_variance_fused, K5's chain (kernels/
 atrous.py:chain over atrous_step, or atrous_chain in a tree that predates
-the row window). The inputs: the denoiser's inputs of the 5th
+the row window) and taa. The inputs: the denoiser's inputs of the 5th
 moving frame of the test scene (20,482 triangles) under the default view,
 at 800x800 and at 1920x1080, recorded as chip_smoke.py's phase 3 records
 them. Times: K4 (one call; also under reproject_gather="tiled" and
-fast_reproject=True where the tree has those reads), and K5's chain on K4's output at 1 to 5
+fast_reproject=True where the tree has those reads), TAA on that frame's
+own inputs (the plain taa, and kernels/taa.py where the tree has it), and
+K5's chain on K4's output at 1 to 5
 iterations, so that each step's increment shows; each the mean device time
 of 20 calls between two CUDA events, after 3 warm-ups, behind a spin kernel
 that keeps the host's launch overhead out (this checkout's
@@ -115,6 +117,22 @@ def step_increments(chain_ms: list[float]) -> str:
                      for n, (a, b) in enumerate(zip([0.0] + chain_ms, chain_ms)))
 
 
+def taa_times(timed, out, state, size: str) -> None:
+    """TAA on a frame's own inputs (its modulated image, the TAA history
+    before it, its velocity and depth): the plain taa, and the kernel
+    where the tree has it (kernels/taa.py), each through timed."""
+    from tpuray_torch.denoise.taa import taa
+    args = (out.svgf.modulated, state.taa_color, out.gbuffer.velocity,
+            out.gbuffer.linear_z, state.frame_idx)
+    # one call a reading: its ~550 launches overflow the launch queue
+    timed(f"TAA plain {size}", lambda: taa(*args), 1)
+    try:
+        from tpuray_torch.kernels import taa as ktaa
+    except ImportError:  # a tree that predates the kernel
+        return
+    timed(f"TAA {size}", lambda: ktaa.taa(*args))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", type=Path, default=Path(__file__).resolve().parents[1])
@@ -137,13 +155,13 @@ def main() -> None:
     scene = make_test_scene(subdiv=5, env_width=512, device=dev)
     times = {}
 
-    def timed(name, fn):
-        times[name] = kernel_ms(fn)
+    def timed(name, fn, reps=20):
+        times[name] = kernel_ms(fn, reps)
         print(f"{name}: {times[name]:.4f} ms", flush=True)
 
     for w, h in SIZES:
         cfg = RenderConfig(width=w, height=h, compact_frac=0.0, compact_auto=False)
-        k4_in = moving_renderer(scene, cfg, 5)[4]
+        _, _, out, state, k4_in = moving_renderer(scene, cfg, 5)
         k4 = kr.reproject_variance_fused(cfg, **k4_in)
         print(f"{w}x{h} K4 inputs (frame 5): {fallback_shares(k4_in, k4.history_len)}",
               flush=True)
@@ -156,6 +174,7 @@ def main() -> None:
             except NotImplementedError:  # a tree that predates the read
                 continue
             timed(f"K4 {read} {w}x{h}", lambda: kr.reproject_variance_fused(rcfg, **k4_in))
+        taa_times(timed, out, state, f"{w}x{h}")
         chain_in = (k4.var_illum, k4.var_variance, k4_in["normal"], k4_in["linear_z"],
                     k4_in["fwidth_z"])
         chain_ms = chain_times(chain_in, cfg)
@@ -163,7 +182,7 @@ def main() -> None:
             times[f"K5 {w}x{h} chain of {n}"] = ms
             print(f"K5 {w}x{h} chain of {n}: {ms:.4f} ms", flush=True)
         print(f"K5 {w}x{h} per step (ms): {step_increments(chain_ms)}", flush=True)
-        del k4_in, k4, chain_in
+        del k4_in, k4, chain_in, out, state
     print(json.dumps(times), flush=True)
 
 

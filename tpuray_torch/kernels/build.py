@@ -25,7 +25,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(_PKG / "csrc" / f for f in ("trace.cu", "trace_wide.cu",
                                              "trace_chunked.cu", "reproject.cu",
-                                             "atrous.cu", "gather.cu"))
+                                             "atrous.cu", "gather.cu", "taa.cu"))
 HEADERS = tuple(_PKG / "csrc" / f for f in ("trace_common.cuh", "denoise_common.cuh"))
 BUILD_ROOT = _PKG.parent / "build" / "tpuray_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -44,6 +44,7 @@ _SIGNATURES = {
                                               _I, _F, _I, _I, _P, _P] + [_I] * 5 + [_P],
     "tpuray_atrous_step": [_P] * 7 + [_I, _I, _I, _I, _I, _F, _I, _F, _I, _P],
     "tpuray_onehot_gather": [_P, _P, _P, _I, _I, _I, _P],
+    "tpuray_taa": [_P] * 5 + [_I] * 6 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -56,10 +56,7 @@ from tpuray_torch.dist.frame import render_frame_sharded, shard_state
 from tpuray_torch.dist.sharding import make_mesh
 from tpuray_torch.integrator.gather_tables import pack_scene_tables
 from tpuray_torch.integrator.path_tracer import pack_traversal
-from tpuray_torch.kernels import atrous as ka
-from tpuray_torch.kernels import reproject as kr
-from tpuray_torch.kernels import trace as kt
-from tpuray_torch.kernels import trace_chunked as ktc
+from tpuray_torch.kernels import launches, reset_launches
 from tpuray_torch.render.frame_state import FrameState
 from tpuray_torch.render.renderer import Renderer
 from tpuray_torch.scene import builder
@@ -72,7 +69,8 @@ from tpuray_torch.train import optimize
 # device-kernel names of the hand-written kernels (csrc/*.cu), matched as
 # substrings: "trace_k1" is K1's trace_k1_warp, and older checkouts' trace_k1
 _OURS = {"K1": "trace_k1", "K2": "trace_k2", "K3": "trace_k3", "K6": "trace_k6",
-         "K4": "reproject_variance", "K5": "atrous_step", "K7": "gather_rows"}
+         "K4": "reproject_variance", "K5": "atrous_step", "K7": "gather_rows",
+         "TAA": "taa_kernel"}
 
 
 def _which(name: str) -> str | None:
@@ -186,8 +184,7 @@ class FrameRun:
 
     def profile_frames(self, frames: int, wall: list[float], out_dir: Path) -> dict:
         def run():
-            for m in (kt, ktc, kr, ka):
-                m.reset_launches()
+            reset_launches()
             for _ in range(frames):
                 self.step()
 
@@ -200,8 +197,7 @@ class FrameRun:
         device_ms = sum(us for _, us in kernels) / 1e3 / frames
         res = dict(wall_ms=wall_ms, kernels_per_frame=len(kernels) / frames,
                    device_ms_per_frame=device_ms, busy_share=device_ms / wall_ms,
-                   launches={**kt.LAUNCHES, **ktc.LAUNCHES, **kr.LAUNCHES,
-                             **ka.LAUNCHES}, dropped=dropped, sessions=sessions)
+                   launches=launches(), dropped=dropped, sessions=sessions)
         tag, cfg = self.tag, self.current_cfg()
         print(f"[{tag}] {cfg.width}x{cfg.height}, compact_frac {cfg.compact_frac}: wall median {wall_ms:.3f} ms "
               f"(min {min(wall):.3f}, max {max(wall):.3f}) over {len(wall)}; "

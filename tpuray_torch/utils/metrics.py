@@ -10,7 +10,8 @@ tpuray/utils/metrics.py).
   holds tpuray.trace_paths
   (integrator/path_tracer.py:trace_paths, which holds
   tpuray.wait.hit_count, host_count's read), tpuray.svgf
-  (denoise/svgf.py:svgf_pipeline, which holds tpuray.taa, denoise/taa.py)
+  (denoise/svgf.py:svgf_pipeline, which holds tpuray.taa: kernels/taa.py's
+  launch on the card, denoise/taa.py's plain taa elsewhere)
   and tpuray.wait.coverage (render/renderer.py:LaggedScalar.read).
 - count(key, value): a counter of the frame being rendered, kept while a
   profiler records: lanes (its primary rays), shaded_lanes (the lanes its
