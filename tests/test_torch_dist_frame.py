@@ -47,9 +47,18 @@ iterations, make_test_scene(subdiv=1, env_width=32), halo 8).
   reprojection exactly where its plain version does, at the pixels whose
   taps leave its rows, and differs from the plain stages' sharded frame
   only where the taps travel farther than the halo.
+- the shared pieces of the frame, with ranks emulated in this process
+  (a Mesh with no process group, so SVGF, which exchanges rows, stays off
+  past a world of one): dist/sharding.py:trace_rows bit-equal to
+  render_tiled's images, to the split frame's pt_color and to
+  render_frame's rows; and the hook the benchmark reads the split frame's
+  G-buffer and denoiser outputs through (portbench/sharded.py): a
+  pass-through in place of dist.frame.denoise_and_advance is called once a
+  frame with a G-buffer of the shard's rows and changes nothing.
 """
 import concurrent.futures
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
@@ -76,7 +85,8 @@ from tpuray_torch.kernels import atrous as katrous
 from tpuray_torch.kernels import reproject as kreproject
 from tpuray_torch.dist.frame import (
     STATE_IMG_FIELDS, _halo_rows, render_frame_sharded, shard_state)
-from tpuray_torch.dist.sharding import make_mesh
+from tpuray_torch.dist.sharding import Mesh, make_mesh, render_tiled, trace_rows
+from tpuray_torch.integrator.gbuffer import GBuffer
 from tpuray_torch.render.frame_state import FrameState
 from tpuray_torch.render.renderer import render_frame
 from tpuray_torch.scene.camera import OrbitCamera
@@ -638,3 +648,89 @@ def test_layout_holds_k4_reach(pallas):
             _check_layout(16, mesh, cfg, halo=14)
     else:
         assert _check_layout(16, mesh, cfg, halo=14) == 16
+
+
+def _emulated_mesh(rank, world):
+    """Rank `rank` of a world of `world` in this process: no process group,
+    so past a world of one only a frame with SVGF off (no halo exchange)
+    runs on it."""
+    return Mesh(rank, world, torch.device("cpu"))
+
+
+def _split_frames(mesh, cfg):
+    """render_frame_sharded's frames over dryrun.CHECK_ROTATIONS on `mesh`
+    -> [(final, pt_color, new state)]."""
+    scene = dryrun.check_scene("cpu")
+    cam = OrbitCamera(width=N, height=N)
+    state = shard_state(FrameState.initial(N, N), mesh)
+    outs = []
+    with torch.no_grad():
+        for rot in dryrun.CHECK_ROTATIONS:
+            cam.rotate(rot, 0.0)
+            state, final, pt_color = render_frame_sharded(
+                scene, cam.snapshot(), state, cfg, N, N, mesh, halo=dryrun.CHECK_HALO)
+            outs.append((final, pt_color, state))
+    return outs
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_denoiser_hook(monkeypatch, world):
+    """The split frame calls dist.frame.denoise_and_advance, looked up at
+    call time, once a frame, its gbuf a GBuffer of the shard's rows, and a
+    pass-through there changes nothing (what portbench/sharded.py relies on
+    to read a kept frame's stages). World 1 under the kernel denoiser;
+    world 2's ranks emulated one after the other, SVGF off."""
+    from tpuray_torch.dist import frame as dframe
+    cfg = RenderConfig(width=N, height=N, enable_svgf=world == 1, **dryrun.CHECK_CFG)
+    rows = N // world
+    shapes = [(rows, N, 3), (rows, N), (rows, N, 2), (rows, N), (rows, N), (rows, N, 3)]
+    for rank in range(world):
+        mesh = _emulated_mesh(rank, world)
+        plain = _split_frames(mesh, cfg)
+        advance, seen = dframe.denoise_and_advance, []
+
+        def passed(*a, **k):
+            seen.append(inspect.signature(advance).bind(*a, **k).arguments["gbuf"])
+            return advance(*a, **k)
+
+        with monkeypatch.context() as m:
+            m.setattr(dframe, "denoise_and_advance", passed)
+            hooked = _split_frames(mesh, cfg)
+        assert len(seen) == len(dryrun.CHECK_ROTATIONS)
+        for gbuf in seen:
+            assert isinstance(gbuf, GBuffer)
+            assert [tuple(x.shape) for x in gbuf] == shapes
+        for (f0, p0, s0), (f1, p1, s1) in zip(plain, hooked):
+            assert torch.equal(f0, f1) and torch.equal(p0, p1)
+            assert s0.frame_idx == s1.frame_idx
+            for field in STATE_IMG_FIELDS + ("prev_view_proj",):
+                assert torch.equal(getattr(s0, field), getattr(s1, field)), field
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_trace_rows_shared(world):
+    """dist/sharding.py:trace_rows, each rank's rows of a moving frame,
+    bit-equal to render_tiled's color, emission and albedo, to the split
+    frame's pt_color under accumulate=False, and to render_frame's rows."""
+    scene = dryrun.check_scene("cpu")
+    cam = OrbitCamera(width=N, height=N)
+    cam.rotate(1.5, 0.0)
+    snap = cam.snapshot()
+    cfg = RenderConfig(width=N, height=N, accumulate=False, enable_svgf=False,
+                       **dryrun.CHECK_CFG)
+    frame, rows = 1, N // world
+    state = FrameState.initial(N, N).replace(frame_idx=frame)
+    with torch.no_grad():
+        _, whole = render_frame(scene, snap, state, cfg, N, N)
+        for rank in range(world):
+            mesh = _emulated_mesh(rank, world)
+            pt = trace_rows(scene, snap, cfg, N, N, rank * rows, rows, frame)
+            images = [x.reshape(rows, N, 3) for x in (pt.color, pt.emission, pt.albedo)]
+            for name, got, want in zip(("color", "emission", "albedo"),
+                                       render_tiled(scene, snap, cfg, mesh, N, N, frame=frame),
+                                       images):
+                assert torch.equal(got, want), name
+            _, _, pt_color = render_frame_sharded(scene, snap, shard_state(state, mesh), cfg,
+                                                  N, N, mesh, halo=dryrun.CHECK_HALO)
+            assert torch.equal(pt_color, images[0])
+            assert torch.equal(images[0], whole.pt_color[rank * rows:(rank + 1) * rows])

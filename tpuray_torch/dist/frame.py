@@ -9,7 +9,9 @@ stage the rank extends its shard with the rows it needs from its
 neighbours (point-to-point sends, `_halo_rows`), computes on the extended
 shard with global-coordinate bounds masks (the `row_window` argument of
 denoise/* and of K4 and K5) and crops, so the result is the single-device
-frame. The stages and their order are render_frame's own
+frame. The frame is render_frame's own sequence, from the same functions:
+dist/sharding.py:trace_rows on the rank's rows, then
+render/renderer.py:denoiser_inputs and denoise_and_advance
 (denoise/svgf.py:svgf_pipeline with this module's ShardRows); a world of
 one holds the whole image and exchanges nothing.
 
@@ -54,14 +56,12 @@ import torch
 import torch.distributed as dist
 
 from tpuray_torch.denoise.svgf import WHOLE_IMAGE, ImageRows
-from tpuray_torch.dist.sharding import Mesh, gather_rows, shard_rays
+from tpuray_torch.dist.sharding import Mesh, gather_rows, shard_rays, trace_rows
 from tpuray_torch.integrator.gather_tables import PackedScene
-from tpuray_torch.integrator.gbuffer import build_gbuffer
-from tpuray_torch.integrator.path_tracer import (
-    KERNELS, Tracer, check_config, trace_paths)
+from tpuray_torch.integrator.path_tracer import KERNELS, Tracer, check_config
 from tpuray_torch.kernels.trace import TraceTables
 from tpuray_torch.render.frame_state import FrameState
-from tpuray_torch.render.renderer import accumulate, denoise_and_advance
+from tpuray_torch.render.renderer import denoise_and_advance, denoiser_inputs
 from tpuray_torch.scene.config import RenderConfig
 from tpuray_torch.scene.types import Camera
 from tpuray_torch.utils.metrics import FRAME, span
@@ -185,27 +185,18 @@ def render_frame_sharded(scene, camera: Camera, state: FrameState,
         check_config(cfg)
         rows = _check_layout(height, mesh, cfg, halo)
         row0 = mesh.rank * rows
-        dev = mesh.device
-        scene, camera = scene.to(dev), camera.to(dev)
-        orig, d, px, py = shard_rays(camera, height, width, row0, rows)
-        pt = trace_paths(scene, orig, d, px, py, state.frame_idx, cfg, common_origin=True,
-                         tracer=tracer, tables=tables, pk=pk)
-
-        def img(x):
-            return x.reshape(rows, width, *x.shape[1:])
-
-        accum = pt_color = accumulate(state, img(pt.color), cfg)
+        scene, camera = scene.to(mesh.device), camera.to(mesh.device)
+        # shard_rays, denoise_and_advance: read per call (portbench/ replaces both)
+        pt = trace_rows(scene, camera, cfg, height, width, row0, rows, state.frame_idx,
+                        tracer, tables, pk, rays=shard_rays)
         # shard rows and row0 are even: no 2x2 quad straddles two shards
-        gbuf = build_gbuffer(
-            point=img(pt.first_hit_point), normal=img(pt.first_hit_normal),
-            valid=img(pt.first_hit_valid), view_proj=camera.view_proj,
-            prev_view_proj=state.prev_view_proj)
+        inputs = denoiser_inputs(pt, state, camera, cfg,
+                                 lambda x: x.reshape(rows, width, *x.shape[1:]))
         # a world of one holds the whole image: nothing to exchange
         image_rows = ShardRows(mesh, row0, height, halo) if mesh.size > 1 else WHOLE_IMAGE
-        new_state, _, final = denoise_and_advance(
-            state, camera, cfg, pt_color, accum, img(pt.emission), img(pt.albedo), gbuf,
-            static_camera, rows=image_rows)
-        return new_state, final, pt_color
+        new_state, _, final = denoise_and_advance(state, camera, cfg, *inputs, static_camera,
+                                                  rows=image_rows)
+        return new_state, final, inputs[0]
 
 
 def shard_state(state: FrameState, mesh: Mesh) -> FrameState:

@@ -20,7 +20,7 @@ import torch
 import torch.distributed as dist
 
 from tpuray_torch.integrator.gather_tables import PackedScene
-from tpuray_torch.integrator.path_tracer import KERNELS, Tracer, trace_paths
+from tpuray_torch.integrator.path_tracer import KERNELS, PTOutput, Tracer, trace_paths
 from tpuray_torch.kernels.trace import TraceTables
 from tpuray_torch.render.tiling import pixel_rays
 from tpuray_torch.scene.config import RenderConfig
@@ -110,23 +110,32 @@ def shard_rays(camera: Camera, height: int, width: int, row0: int, rows: int
     return pixel_rays(camera, height, width, xx.reshape(-1), yy.reshape(-1))
 
 
+def trace_rows(scene, camera: Camera, cfg: RenderConfig, height: int, width: int,
+               row0: int, rows: int, frame: int, tracer: Tracer = KERNELS,
+               tables: TraceTables | None = None, pk: PackedScene | None = None,
+               rays=shard_rays) -> PTOutput:
+    """Path-trace rows row0 .. row0 + rows of a frame (rays: shard_rays)
+    -> trace_paths' PTOutput, its lanes row-major: x.reshape(rows, W, ...)
+    is the rows' image."""
+    orig, d, px, py = rays(camera, height, width, row0, rows)
+    return trace_paths(scene, orig, d, px, py, int(frame), cfg, common_origin=True,
+                       tracer=tracer, tables=tables, pk=pk)
+
+
 def render_tiled(scene, camera: Camera, cfg: RenderConfig, mesh: Mesh,
                  height: int, width: int, frame: int = 0,
                  tracer: Tracer = KERNELS, tables: TraceTables | None = None,
                  pk: PackedScene | None = None
                  ) -> tuple[Tensor, Tensor, Tensor]:
-    """Path-trace this rank's rows of a frame -> (color, emission, albedo),
-    each (rows, W, 3) of the image padded to the world size (shard_span;
-    gather_rows assembles the full image). The rays are row-major with
-    global pixel coordinates, on the mesh's device (the scene is moved
-    there; pass tables and pk packed from it to pack them once)."""
+    """Path-trace this rank's rows of a frame (trace_rows) -> (color,
+    emission, albedo), each (rows, W, 3) of the image padded to the world
+    size (shard_span; gather_rows assembles the full image), on the mesh's
+    device (the scene is moved there; pass tables and pk packed from it to
+    pack them once)."""
     row0, rows = shard_span(height, mesh)
-    scene, camera = scene.to(mesh.device), camera.to(mesh.device)
-    orig, d, px, py = shard_rays(camera, height, width, row0, rows)
-    pt = trace_paths(scene, orig, d, px, py, int(frame), cfg,
-                     common_origin=True, tracer=tracer, tables=tables, pk=pk)
-    return (pt.color.reshape(rows, width, 3), pt.emission.reshape(rows, width, 3),
-            pt.albedo.reshape(rows, width, 3))
+    pt = trace_rows(scene.to(mesh.device), camera.to(mesh.device), cfg, height, width,
+                    row0, rows, frame, tracer, tables, pk)
+    return tuple(x.reshape(rows, width, 3) for x in (pt.color, pt.emission, pt.albedo))
 
 
 def gather_rows(mesh: Mesh, x: Tensor, height: int | None = None) -> Tensor:

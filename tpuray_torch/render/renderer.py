@@ -5,7 +5,8 @@ tree K1 for the primaries and K2 per bounce, or K3 for separate walks and
 the MIS integrator; on a chunked forest K6 for every walk; with compaction
 the bounces shade only the lanes that hit), progressive accumulation, the
 G-buffer, the SVGF + TAA denoiser (K4 for reproject + variance, K5 for the
-a-trous chain; denoise/svgf.py), and the FrameState update.
+a-trous chain; denoise/svgf.py), and the FrameState update: after the path
+tracer, denoiser_inputs and denoise_and_advance (dist/frame.py's too).
 
 The Renderer picks the compaction budget of the next frames from the hit
 coverage of an earlier frame (cfg.compact_auto), read a period late so
@@ -91,17 +92,8 @@ def render_frame(scene, camera: Camera, state: FrameState, cfg: RenderConfig,
                          common_origin=True, tracer=tracer, tables=tables, pk=pk)
     else:
         pt = paths(state.frame_idx, cfg, height, width)
-
-    emission = untile(pt.emission, height, width)
-    albedo = untile(pt.albedo, height, width)
-    accum = pt_color = accumulate(state, untile(pt.color, height, width), cfg)
-
-    gbuf = build_gbuffer(
-        point=untile(pt.first_hit_point, height, width),
-        normal=untile(pt.first_hit_normal, height, width),
-        valid=untile(pt.first_hit_valid, height, width),
-        view_proj=camera.view_proj, prev_view_proj=state.prev_view_proj)
-
+    pt_color, accum, emission, albedo, gbuf = denoiser_inputs(
+        pt, state, camera, cfg, lambda x: untile(x, height, width))
     new_state, svgf, final = denoise_and_advance(
         state, camera, cfg, pt_color, accum, emission, albedo, gbuf, static_camera)
     outputs = FrameOutputs(
@@ -110,6 +102,23 @@ def render_frame(scene, camera: Camera, state: FrameState, cfg: RenderConfig,
         coverage=torch.mean(pt.first_hit_valid.to(torch.float32)))
     count("coverage", outputs.coverage)
     return new_state, outputs
+
+
+def denoiser_inputs(pt: PTOutput, state: FrameState, camera: Camera, cfg: RenderConfig,
+                    image: Callable[[Tensor], Tensor]
+                    ) -> tuple[Tensor, Tensor, Tensor, Tensor, GBuffer]:
+    """A frame's traced lanes -> denoise_and_advance's inputs (pt_color,
+    accum, emission, albedo, gbuf). image maps a lane tensor (N, ...) onto
+    its image rows (rows, W, ...): untile for the whole image in tile
+    order, a reshape for a row shard's row-major lanes (dist/frame.py)."""
+    emission = image(pt.emission)
+    albedo = image(pt.albedo)
+    accum = pt_color = accumulate(state, image(pt.color), cfg)
+    gbuf = build_gbuffer(
+        point=image(pt.first_hit_point), normal=image(pt.first_hit_normal),
+        valid=image(pt.first_hit_valid), view_proj=camera.view_proj,
+        prev_view_proj=state.prev_view_proj)
+    return pt_color, accum, emission, albedo, gbuf
 
 
 def accumulate(state: FrameState, color: Tensor, cfg: RenderConfig) -> Tensor:
@@ -129,17 +138,13 @@ def denoise_and_advance(state: FrameState, camera: Camera, cfg: RenderConfig,
     """A frame's denoiser and state update from its traced images ->
     (new_state, svgf, final). rows: svgf_pipeline's, the whole image or a
     row shard (dist/frame.py); K4 and K5 under cfg.pallas_denoise."""
-    frame = state.frame_idx
+    history = {}  # SVGF's temporal fields, kept as they are with SVGF off
     if cfg.enable_svgf:
         svgf = svgf_pipeline(pt_color, emission, albedo, gbuf, state, cfg,
                              static_camera=static_camera, rows=rows)
         final = svgf.taa if cfg.enable_taa else svgf.modulated
-        new_state = state.replace(
-            illum_hist=svgf.history_tap, variance_hist=svgf.history_tap_var,
-            prev_normal=gbuf.normal, prev_linear_z=gbuf.linear_z,
-            moments=svgf.moments, history_len=svgf.history_len,
-            accum_color=accum, taa_color=svgf.taa, frame_idx=frame + 1,
-            prev_view_proj=camera.view_proj)
+        history = dict(illum_hist=svgf.history_tap, variance_hist=svgf.history_tap_var,
+                       moments=svgf.moments, history_len=svgf.history_len)
     else:
         z1 = torch.zeros(pt_color.shape[:2], dtype=torch.float32,
                          device=pt_color.device)
@@ -152,10 +157,10 @@ def denoise_and_advance(state: FrameState, camera: Camera, cfg: RenderConfig,
                                 device=pt_color.device),
             history_len=z1)
         final = pt_color
-        new_state = state.replace(
-            prev_normal=gbuf.normal, prev_linear_z=gbuf.linear_z,
-            accum_color=accum, taa_color=final, frame_idx=frame + 1,
-            prev_view_proj=camera.view_proj)
+    new_state = state.replace(
+        prev_normal=gbuf.normal, prev_linear_z=gbuf.linear_z, accum_color=accum,
+        taa_color=svgf.taa, frame_idx=state.frame_idx + 1, prev_view_proj=camera.view_proj,
+        **history)
     return new_state, svgf, final
 
 

@@ -24,9 +24,8 @@ from typing import Any, Callable, NamedTuple
 import torch
 import torch.distributed as dist
 
-from tpuray_torch.dist.sharding import shard_rays, shard_span
-from tpuray_torch.integrator.path_tracer import (
-    KERNELS, Tracer, pack_traversal, trace_paths)
+from tpuray_torch.dist.sharding import shard_span, trace_rows
+from tpuray_torch.integrator.path_tracer import KERNELS, Tracer, pack_traversal
 from tpuray_torch.kernels.trace import TraceTables
 from tpuray_torch.scene.config import RenderConfig
 from tpuray_torch.scene.types import Camera
@@ -79,18 +78,11 @@ def render_flat(scene, camera: Camera, cfg: RenderConfig, height: int,
                 width: int, frame: int, tracer: Tracer = KERNELS,
                 tables: TraceTables | None = None) -> Tensor:
     """(H, W, 3) 1-spp radiance of row-major primary rays (row 0 the top
-    image row; px = x, py = H-1-y, the RNG keys), differentiable with
-    respect to the scene's materials and lights. tables: the scene's
-    pack_traversal, built here when not given."""
-    dev = scene.triangles.p0.device
-    camera = camera.to(dev)
-    n = height * width
-    dirs = camera.ray_directions(height, width).reshape(n, 3)
-    yy, xx = torch.meshgrid(torch.arange(height, device=dev),
-                            torch.arange(width, device=dev), indexing="ij")
-    pt = trace_paths(scene, camera.eye[None], dirs, xx.reshape(n),
-                     (height - 1 - yy).reshape(n), int(frame), cfg,
-                     common_origin=True, tracer=tracer, tables=tables)
+    image row; px = x, py = H-1-y, the RNG keys: trace_rows over every
+    row), differentiable with respect to the scene's materials and lights.
+    tables: the scene's pack_traversal, built here when not given."""
+    camera = camera.to(scene.triangles.p0.device)
+    pt = trace_rows(scene, camera, cfg, height, width, 0, height, frame, tracer, tables)
     return pt.color.reshape(height, width, 3)
 
 
@@ -160,10 +152,8 @@ def make_sharded_train_step(rebuild: Callable, cfg: RenderConfig, height: int,
         scene = rebuild(params)
         if not packed:
             packed.append(pack_traversal(scene))
-        cam = camera.to(mesh.device)
-        orig, d, px, py = shard_rays(cam, height, width, row0, rows)
-        pt = trace_paths(scene, orig, d, px, py, int(frame), cfg,
-                         common_origin=True, tracer=tracer, tables=packed[0])
+        pt = trace_rows(scene, camera.to(mesh.device), cfg, height, width, row0, rows,
+                        frame, tracer, tables=packed[0])
         img = pt.color.reshape(rows, width, 3)
         return torch.sum((img - target) ** 2) / (height * width * 3)
 
